@@ -2,15 +2,29 @@
 
     python chip_smoke.py
 
-Builds the WJD SpMV kernels (rocalution_tpu_torch/csrc/spmv_wjd.cu) from
-the checkout, holds each against its plain PyTorch version on the card at
-1M rows, then drives the main path — CG + Jacobi through the public entry
-points — and checks that it went through the kernels. Phase G then profiles
-the 1M-row f64 CG loop (host clock against torch.profiler's device time).
-Each phase prints one line; any failure raises, so the exit code is
-non-zero. Without a CUDA
-device it fails at once. The last three lines are the card as nvidia-smi
-reports it, the per-kernel JSON, and the result JSON.
+Builds the WJD kernels (rocalution_tpu_torch/csrc/*.cu) from the checkout
+and holds each against its plain PyTorch version on the card at full size,
+then drives the main paths through the public entry points and checks that
+each went through its kernels:
+
+  A-B  the card, the toolchain, the build (one nvcc per source, together)
+  C    the four direct single-RHS kernels at 1M rows
+  D-F  CG + Jacobi at 1M rows (f64 and f32, roll and gather plans)
+  G    profile of the 1M-row f64 CG loop (host clock against
+       torch.profiler's device time) and the host cost of one apply
+  H    blocked right-hand sides: rt.spmv(A, X), X of 16 and 20 columns
+  I    operators in the windowed regime (2.1M rows f64, 5.8M and 4.2M rows
+       f32): the windowed kernels, then CG + Jacobi through them
+  J    ELL, HYB and BCSR operands routed through a WJD plan; COO, MCSR and
+       DENSE plain applies
+
+Each kernel row carries its time, the plain version's, the bytes bound
+(`bound_ms`) and the time of the one PyTorch call that computes the same
+product (`library_ms`: torch.sparse_csr_tensor @ x, which the port never
+calls). Each phase prints one line; any failure raises, so the exit code
+is non-zero. Without a CUDA device it fails at once. The last three lines
+are the card as nvidia-smi reports it, the per-kernel JSON, and the result
+JSON.
 """
 
 import importlib.util
@@ -31,15 +45,34 @@ REPS = 20
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
 PROF_WALL_ITERS = 256       # phase G: CG iterations timed on the host clock
 PROF_ITERS = 64             # phase G: CG iterations under torch.profiler
-SOURCE = "rocalution_tpu_torch/csrc/spmv_wjd.cu"
-# TPU kernel each entry point replaces (body of _kernel_roll_ff, _kernel_ff,
-# _kernel_roll and _kernel)
-REPLACES = {
-    "roll_f64": "rocalution_tpu/ops/pallas/spmv_wjd.py:206",
-    "gather_f64": "rocalution_tpu/ops/pallas/spmv_wjd.py:480",
-    "roll_f32": "rocalution_tpu/ops/pallas/spmv_wjd.py:183",
-    "gather_f32": "rocalution_tpu/ops/pallas/spmv_wjd.py:137",
+WIN_LAP64_N = 128           # laplacian_3d(128) f64: 2,097,152 rows
+WIN_LAP32_N = 180           # laplacian_3d(180) f32: 5,832,000 rows
+WIN_RAND_N = 1 << 22        # random_banded_spd(1<<22) f32: 4,194,304 rows
+MRHS_COLS = (16, 20)        # phase H: one full chunk, and one that crosses
+HOST_CALLS = 200            # phase G: applies timed on the host clock
+# published peaks of one H100 SXM: HBM bytes/s, and flop/s outside the
+# tensor cores by value type
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+CSRC = "rocalution_tpu_torch/csrc/"
+TPU = "rocalution_tpu/ops/pallas/spmv_wjd.py:"
+# launch counter -> (entry point, source, line of the TPU kernel it replaces:
+# _kernel_roll_ff, _kernel_ff, _kernel_roll, _kernel; _kernel_mrhs;
+# _kernel_roll_ff_hbm, _kernel_roll_hbm, _kernel_hbm)
+KERNELS = {
+    "roll_f64": ("wjd_spmv_roll_f64", "spmv_wjd.cu", 206),
+    "gather_f64": ("wjd_spmv_gather_f64", "spmv_wjd.cu", 480),
+    "roll_f32": ("wjd_spmv_roll_f32", "spmv_wjd.cu", 183),
+    "gather_f32": ("wjd_spmv_gather_f32", "spmv_wjd.cu", 137),
+    "spmm_roll_f64": ("wjd_spmm_roll_f64", "spmm_wjd.cu", 448),
+    "spmm_gather_f64": ("wjd_spmm_gather_f64", "spmm_wjd.cu", 448),
+    "spmm_roll_f32": ("wjd_spmm_roll_f32", "spmm_wjd.cu", 448),
+    "spmm_gather_f32": ("wjd_spmm_gather_f32", "spmm_wjd.cu", 448),
+    "win_roll_f64": ("wjd_spmv_win_roll_f64", "spmv_wjd_win.cu", 375),
+    "win_roll_f32": ("wjd_spmv_win_roll_f32", "spmv_wjd_win.cu", 233),
+    "win_gather_f32": ("wjd_spmv_win_gather_f32", "spmv_wjd_win.cu", 310),
 }
+TAG = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def say(phase, msg):
@@ -84,6 +117,72 @@ def rhs_of_ones(A):
     return torch.from_numpy(b).to(A.device)
 
 
+class Counted:
+    """The launches of one main path: every count is set to 0 on entry and
+    added to the run's totals on exit."""
+
+    def __init__(self, kernels, totals):
+        self.kernels, self.totals, self.got = kernels, totals, {}
+
+    def __enter__(self):
+        for key in self.kernels.launches:
+            self.kernels.launches[key] = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.got = dict(self.kernels.launches)
+        for key, n in self.got.items():
+            self.totals[key] = self.totals.get(key, 0) + n
+
+
+def rel_err(got, want, tag, tol):
+    """max|got - want| and the same over max|want|; raises beyond tol."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{tag}: output is not finite")
+    max_abs = float((got - want).abs().max())
+    rel = max_abs / float(want.abs().max())
+    if rel > tol:
+        raise RuntimeError(f"{tag}: disagrees with its reference: "
+                           f"{rel:.3e} > {tol}")
+    return max_abs, rel
+
+
+def bound(W, kernels, cols=1):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for one slot product on `cols` columns. Bytes: slot values (+ uloc),
+    brow and diag_u, padded x and y, each once, over the HBM rate;
+    operations: 2 flops per slot element and column over the peak rate."""
+    Tp, K = W.brow.shape
+    isz = W.data.element_size()
+    nbytes = (kernels.slot_bytes(W) + 2 * 4 * Tp * K
+              + (W.xp_len + Tp * 1024) * isz * cols)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 2 * Tp * K * 1024 * cols / PEAK_FLOPS[W.data.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_ms(A, x):
+    """Time of the one PyTorch call for the same product: a sparse CSR
+    tensor (cuSPARSE) times x. Used for comparison only."""
+    S = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
+    return median_ms(lambda: S @ x)
+
+
+def random_x(rt, A, dtype, cols=None):
+    shape = (A.shape[1],) if cols is None else (A.shape[1], cols)
+    x = np.random.default_rng(1234).standard_normal(shape)
+    return torch.from_numpy(x.astype(rt.config.numpy_dtype(dtype))).cuda()
+
+
+def plan_line(A, W):
+    Tp, K = W.brow.shape
+    return (f"n={A.shape[0]} nnz={A.nnz} plan {W.kernel_mode} (Tp,K)=({Tp},"
+            f"{K}) wlog={W.wlog} group={W.group} padding "
+            f"{W.padding_ratio:.2f}x spill={W.spill_row.numel()} "
+            f"dia={len(W.dia_offsets)} win_rows={W.win_rows}")
+
+
 def phase_a():
     say("A", f"card (nvidia-smi name, power.limit): {card_line()}")
     nvcc = shutil.which("nvcc")
@@ -101,12 +200,13 @@ def phase_a():
 def phase_b(kernels):
     t0 = time.perf_counter()
     kernels.build()
-    say("B", f"built {SOURCE} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    sources = sorted({src for _, src, _ in KERNELS.values()})
+    say("B", f"built {CSRC}{' '.join(sources)} for sm_90a, one nvcc each, "
+        f"in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_c(rt, kernels, ops):
-    """Kernel against plain version on the card, per entry point."""
+    """Direct kernel against plain version on the card, per entry point."""
     results = {}
     for key, (A, attach_kw) in ops.items():
         t0 = time.perf_counter()
@@ -115,39 +215,27 @@ def phase_c(rt, kernels, ops):
         plan_s = time.perf_counter() - t0
         if not key.startswith(W.kernel_mode):
             raise RuntimeError(f"{key}: plan chose {W.kernel_mode} mode")
-        rng = np.random.default_rng(1234)
-        x = torch.from_numpy(rng.standard_normal(A.shape[1]).astype(
-            rt.config.numpy_dtype(W.data.dtype))).cuda()
-        y_k = kernels.wjd_spmv(W, x)
-        y_p = kernels.wjd_reference(W, x)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(y_k).all()):
-            raise RuntimeError(f"{key}: kernel output is not finite")
-        max_abs = float((y_k - y_p).abs().max())
-        rel = max_abs / float(y_p.abs().max())
-        if rel > TOL[W.data.dtype]:
-            raise RuntimeError(f"{key}: kernel disagrees with the plain "
-                               f"version: {rel:.3e} > {TOL[W.data.dtype]}")
+        tol = TOL[W.data.dtype]
+        x = random_x(rt, A, W.data.dtype)
+        max_abs, rel = rel_err(kernels.wjd_spmv(W, x),
+                               kernels.wjd_reference(W, x), key, tol)
         xp = kernels.pad_x(W, x)
         k_ms = median_ms(lambda: kernels.slots_kernel(W, xp))
         p_ms = median_ms(lambda: kernels.slots_plain(W, xp))
         op_ms = median_ms(lambda: kernels.wjd_spmv(W, x))
         ref_ms = median_ms(lambda: kernels.wjd_reference(W, x))
-        isz = W.data.element_size()
-        ref_gbs = (isz + 4) * A.nnz / (op_ms * 1e-3) / 1e9
-        own_gbs = (kernels.slot_bytes(W) + (W.xp_len + W.brow.shape[0]
-                   * 1024) * isz) / (k_ms * 1e-3) / 1e9
-        Tp, K = W.brow.shape
-        say("C", f"{key}: n={A.shape[0]} nnz={A.nnz} plan (Tp,K)=({Tp},{K}) "
-            f"wlog={W.wlog} padding {W.padding_ratio:.2f}x "
-            f"spill={W.spill_row.numel()} "
-            f"dia={len(W.dia_offsets)} plan {plan_s:.1f} s | max|dy|/max|y|"
-            f"={rel:.3e} (tol {TOL[W.data.dtype]:g}) | kernel "
-            f"{k_ms * 1e3:.1f} us vs plain {p_ms * 1e3:.1f} us | full op "
+        lib_ms = library_ms(A, x)
+        b_ms, b_by = bound(W, kernels)
+        ref_gbs = (W.data.element_size() + 4) * A.nnz / (op_ms * 1e-3) / 1e9
+        say("C", f"{key}: {plan_line(A, W)} plan {plan_s:.1f} s | "
+            f"max|dy|/max|y|={rel:.3e} (tol {tol:g}) | kernel {k_ms * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
+            f"sparse-CSR library call {lib_ms * 1e3:.1f} us | full op "
             f"{op_ms * 1e3:.1f} us vs plain {ref_ms * 1e3:.1f} us | "
-            f"{ref_gbs:.0f} GB/s by (sizeof(T)+4)*nnz, kernel "
-            f"{own_gbs:.0f} GB/s own bytes")
-        results[key] = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}
+            f"{ref_gbs:.0f} GB/s by (sizeof(T)+4)*nnz")
+        results[key] = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms}
     return results
 
 
@@ -264,6 +352,240 @@ def phase_g(rt, ops):
             f"{top_s}")
 
 
+def host_us(fn, arg):
+    """Host-clock microseconds one fn(arg) call takes to enqueue (the
+    queue is drained before and after, not between), and per call to
+    finish."""
+    fn(arg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn(arg)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / HOST_CALLS * 1e6, (t2 - t0) / HOST_CALLS * 1e6
+
+
+def phase_g_host(rt, kernels, A, A_plain):
+    """What one apply costs the host: `wjd_spmv` (checks, the padded copy
+    of x, a ctypes call) against the plain CSR apply (`index_select`,
+    multiply, `index_add_`), HOST_CALLS calls each, in turns."""
+    W = A._wjd_cache
+    x = random_x(rt, A, W.data.dtype)
+    cells = []
+    for _ in range(2):
+        cells.append((host_us(lambda v: kernels.wjd_spmv(W, v), x),
+                      host_us(lambda v: rt.spmv(A_plain, v), x)))
+    say("G", "host cost of one apply, enqueue us (enqueue + device us): "
+        + "; ".join(f"wjd_spmv {w[0]:.1f} ({w[1]:.1f}) vs plain CSR "
+                    f"{p[0]:.1f} ({p[1]:.1f})" for w, p in cells))
+
+
+def phase_h(rt, kernels, totals, ops, single):
+    """Blocked right-hand sides: the SpMM kernel against its plain version
+    on 16 columns, in both layouts of padded X, then the entry point
+    rt.spmv(A, X) on 16 and 20 columns against the plain version and
+    against 16 single-RHS applies."""
+    results = {}
+    for key, (A, _) in ops.items():
+        W = A._wjd_cache
+        tol = TOL[W.data.dtype]
+        X = {k: random_x(rt, A, W.data.dtype, k) for k in MRHS_COLS}
+        xp = kernels.pad_x(W, X[16], 16)             # (xp_len, 16) row-major
+        xpl = xp.t().contiguous()                    # (16, xp_len) planes
+        y_p = kernels.slots_plain_mrhs(W, xp)
+        max_abs, rel = rel_err(kernels.slots_kernel_mrhs(W, xp), y_p,
+                               f"spmm_{key}", tol)
+        rel_err(kernels.slots_kernel_mrhs(W, xpl, row_major=False).t(), y_p,
+                f"spmm_{key} planes", tol)
+        del y_p
+        k_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W, xp))
+        pl_ms = median_ms(lambda: kernels.slots_kernel_mrhs(
+            W, xpl, row_major=False))
+        p_ms = median_ms(lambda: kernels.slots_plain_mrhs(W, xp))
+        lib_ms = library_ms(A, X[16])
+        # pad, launch and trim, as the wrapper does it, in each layout: the
+        # planes pay two transposing copies around the launch
+        n, m = A.shape
+
+        def padded_row_major():
+            return kernels.slots_kernel_mrhs(W, kernels.pad_x(W, X[16]))[:n]
+
+        def padded_planes():
+            xq = X[16].new_zeros((16, W.xp_len))
+            xq[:, W.pad_lo:W.pad_lo + m] = X[16].t()
+            return kernels.slots_kernel_mrhs(
+                W, xq, row_major=False)[:, :n].t().contiguous()
+
+        rel_err(padded_planes(), padded_row_major(), f"spmm_{key} layouts",
+                tol)
+        rm_all_ms = median_ms(padded_row_major)
+        pl_all_ms = median_ms(padded_planes)
+        b_ms, b_by = bound(W, kernels, 16)
+        with Counted(kernels, totals) as c:
+            Y = {k: rt.spmv(A, X[k]) for k in MRHS_COLS}
+        if c.got[f"spmm_{key}"] != 3:                # 1 chunk + 2 chunks
+            raise RuntimeError(f"H {key}: {c.got} launches for X of 16 and "
+                               "20 columns")
+        for k in MRHS_COLS:
+            if tuple(Y[k].shape) != (A.shape[0], k):
+                raise RuntimeError(f"H {key}: Y has shape {Y[k].shape}")
+            rel_err(Y[k], kernels.wjd_reference(W, X[k]), f"H {key} k={k}",
+                    tol)
+        singles = torch.stack([kernels.wjd_spmv(W, X[16][:, j].contiguous())
+                               for j in range(16)], dim=1)
+        _, rel_s = rel_err(Y[16], singles, f"H {key} vs single applies", tol)
+        op_ms = median_ms(lambda: rt.spmv(A, X[16]))
+        say("H", f"spmm_{key}: n={A.shape[0]} k=16 max|dY|/max|Y|={rel:.3e} "
+            f"vs plain, {rel_s:.3e} vs 16 single applies (tol {tol:g}) | "
+            f"kernel {k_ms * 1e3:.1f} us with X row-major (as rt.spmv "
+            f"lays it out; {k_ms * 1e3 / 16:.1f} us/column against "
+            f"{single[key]['ms'] * 1e3:.1f} us for the single-RHS kernel), "
+            f"{pl_ms * 1e3:.1f} us with X in planes; with padding and "
+            f"trimming {rm_all_ms * 1e3:.1f} us row-major against "
+            f"{pl_all_ms * 1e3:.1f} us planes | bound "
+            f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
+            f"sparse-CSR library call "
+            f"{lib_ms * 1e3:.1f} us | rt.spmv(A, X) {op_ms * 1e3:.1f} us; "
+            f"k=20 agrees too; {c.got[f'spmm_{key}']} launches")
+        results[f"spmm_{key}"] = {
+            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return results
+
+
+def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
+            err_tol):
+    """One operator in the windowed regime: CG + Jacobi through rt.cg (with
+    attach_kw=None the plan comes from the solver's auto-attach alone),
+    then the windowed kernel against its plain version, timed beside the
+    direct kernel on the same plan."""
+    from rocalution_tpu_torch.formats.wjd import windowed
+
+    t0 = time.perf_counter()
+    A = make()
+    gen_s = time.perf_counter() - t0
+    b = rhs_of_ones(A)
+    t0 = time.perf_counter()
+    if attach_kw is not None:
+        rt.attach_wjd(A, **attach_kw)
+    with Counted(kernels, totals) as c:
+        x, info, _ = solve(rt, A, b, rel_tol=rel_tol, max_iter=3000)
+    first_s = time.perf_counter() - t0          # plan + Jacobi + first solve
+    W = getattr(A, "_wjd_cache", None)
+    if W is None:
+        raise RuntimeError(f"I {tag}: WJD did not attach")
+    if not (key == f"win_{W.kernel_mode}_{TAG[W.data.dtype]}"
+            and windowed(W, W.data.dtype)):
+        raise RuntimeError(f"I {tag}: plan ({W.kernel_mode}, xp_len="
+                           f"{W.xp_len}) is not in the windowed regime")
+    it, err = check_solve(f"I {tag}", x, info, 2, err_tol)
+    if c.got[key] < it + 1:
+        raise RuntimeError(f"I {tag}: {c.got[key]} {key} launches for {it} "
+                           "iterations")
+    x, info, s = solve(rt, A, b, rel_tol=rel_tol, max_iter=3000)
+    check_solve(f"I {tag} re-solve", x, info, 2, err_tol)
+    line = (f"{tag} CG+Jacobi rel_tol {rel_tol:g}: {it} iters (status 2, "
+            f"|x-1|/|1|={err:.2e}, {c.got[key]} {key} launches) "
+            f"{s / it * 1e3:.3f} ms/iter; generate {gen_s:.1f} s, plan + "
+            f"first solve {first_s:.1f} s")
+    if attach_kw is None:
+        # the same solve through the plain CSR apply
+        A_plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+        rt.set_auto_wjd(False)
+        try:
+            xp_, info_p, plain_s = solve(rt, A_plain, b, rel_tol=rel_tol,
+                                         max_iter=3000)
+        finally:
+            rt.set_auto_wjd(None)
+        it_p, _ = check_solve(f"I {tag} plain", xp_, info_p, 2, err_tol)
+        if abs(it_p - it) > 1:
+            raise RuntimeError(f"I {tag}: WJD {it} vs plain CSR {it_p} "
+                               "iterations")
+        line += (f" | plain CSR {it_p} iters "
+                 f"{plain_s / it_p * 1e3:.3f} ms/iter")
+        del A_plain, xp_
+    say("I", line)
+
+    tol = TOL[W.data.dtype]
+    xv = random_x(rt, A, W.data.dtype)
+    xp = kernels.pad_x(W, xv)
+    y_p = kernels.slots_plain_windowed(W, xp)
+    max_abs, rel = rel_err(kernels.slots_kernel_windowed(W, xp), y_p, key,
+                           tol)
+    rel_err(kernels.wjd_spmv(W, xv), kernels.wjd_reference(W, xv),
+            f"{key} full op", tol)
+    del y_p
+    k_ms = median_ms(lambda: kernels.slots_kernel_windowed(W, xp))
+    d_ms = median_ms(lambda: kernels.slots_kernel(W, xp))
+    k2_ms = median_ms(lambda: kernels.slots_kernel_windowed(W, xp))
+    p_ms = median_ms(lambda: kernels.slots_plain_windowed(W, xp))
+    lib_ms = library_ms(A, xv)
+    b_ms, b_by = bound(W, kernels)
+    say("I", f"{key}: {plan_line(A, W)} steps="
+        f"{W.win_base.numel()} | max|dy|/max|y|={rel:.3e} (tol {tol:g}) | "
+        f"windowed kernel {k_ms * 1e3:.1f} us (again {k2_ms * 1e3:.1f}), "
+        f"direct kernel on the same plan {d_ms * 1e3:.1f} us | bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
+        f"sparse-CSR library call "
+        f"{lib_ms * 1e3:.1f} us")
+    return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}}
+
+
+def phase_j(rt, kernels, totals, lap, rand):
+    """ELL, HYB and BCSR operands on the card go through a WJD plan once a
+    solver's `as_operator` has seen them, and agree with the plain CSR
+    apply; so do the plain COO and MCSR applies, and DENSE at a small
+    size. ELL is shown on the Laplacian: two columns of the random banded
+    matrix collect about 3,000 entries each (the generator clips columns
+    at the border), so its ELL form would be 3,093 wide, 26 GB."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    tol = TOL[torch.float64]
+    for fmt, kw, A, tag, key in (
+            ("ELL", {}, lap, f"laplacian_3d({LAP_N})", "roll_f64"),
+            ("HYB", {}, rand, f"random_banded_spd({RAND_N})", "gather_f64"),
+            ("BCSR", {"block_dim": 4}, rand, f"random_banded_spd({RAND_N})",
+             "gather_f64")):
+        A_plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+        x = random_x(rt, A, torch.float64)
+        want = rt.spmv(A_plain, x)                 # no plan: plain CSR apply
+        t0 = time.perf_counter()
+        B = rt.convert(A_plain, fmt, **kw)
+        conv_s = time.perf_counter() - t0
+        if B.device.type != "cuda":
+            raise RuntimeError(f"J {fmt}: built on {B.device}")
+        _, rel_u = rel_err(rt.spmv(B, x), want, f"J {fmt} unrouted", tol)
+        u_ms = median_ms(lambda: rt.spmv(B, x))
+        t0 = time.perf_counter()
+        op = as_operator(B)
+        plan_s = time.perf_counter() - t0
+        with Counted(kernels, totals) as c:
+            y, y2 = op(x), rt.spmv(B, x)
+        if c.got[key] != 2:
+            raise RuntimeError(f"J {fmt}: routed applies launched {c.got}")
+        _, rel_r = rel_err(y, want, f"J {fmt} routed", tol)
+        rel_err(y2, want, f"J {fmt} routed", tol)
+        r_ms = median_ms(lambda: rt.spmv(B, x))
+        say("J", f"{fmt} of {tag} f64: convert {conv_s:.1f} s, to_csr + "
+            f"plan {plan_s:.1f} s | unrouted apply {u_ms * 1e3:.1f} us "
+            f"(max|dy|/max|y|={rel_u:.1e} vs CSR) | routed through {key}: "
+            f"{r_ms * 1e3:.1f} us ({rel_r:.1e}), 2 launches")
+        del B, op
+    for fmt in ("COO", "MCSR"):
+        B = rt.convert(A_plain, fmt)
+        _, rel = rel_err(rt.spmv(B, x), want, f"J {fmt}", tol)
+        say("J", f"{fmt} plain apply agrees with CSR: {rel:.1e}, "
+            f"{median_ms(lambda: rt.spmv(B, x)) * 1e3:.1f} us")
+    S = rt.laplacian_2d(32)
+    xs = random_x(rt, S, torch.float64, 3)
+    _, rel = rel_err(rt.spmv(rt.convert(S, "DENSE"), xs), rt.spmv(S, xs),
+                     "J DENSE", tol)
+    say("J", f"DENSE 1024 x 1024 with 3 columns agrees with CSR: {rel:.1e}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
@@ -271,11 +593,11 @@ def main():
     import rocalution_tpu_torch as rt
     from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
+    t_start = time.perf_counter()
     phase_a()
-
-    rt.set_default_device("cuda")
     phase_b(kernels)
 
+    # no device is named anywhere below: the port builds on the card
     lap64 = rt.laplacian_3d(LAP_N)
     lap32 = rt.laplacian_3d(LAP_N, dtype=np.float32)
     rand64 = rt.random_banded_spd(RAND_N)
@@ -289,26 +611,49 @@ def main():
     }
     measured = phase_c(rt, kernels, ops)
 
-    # main path: counts start at 0 here and are read after phase F
-    for key in kernels.launches:
-        kernels.launches[key] = 0
-    A, A_plain, b = phase_d(rt, kernels)
-    phase_solve(rt, kernels, "E", f"random_banded_spd({RAND_N}) f64",
-                rand64, "gather_f64", 1e-8, 1e-6)
-    phase_solve(rt, kernels, "F", f"random_banded_spd({RAND_N}) f32",
-                rand32, "gather_f32", 1e-5, 1e-3)
-    phase_solve(rt, kernels, "F", f"laplacian_3d({LAP_N}) f32 split_dia="
-                "False", lap32, "roll_f32", 1e-5, 1e-3)
-    launches = dict(kernels.launches)
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise RuntimeError(f"main path never launched {idle}")
+    # main paths: each runs with the counts set to 0 just before it and
+    # read just after; `totals` adds them up per entry point
+    totals = {}
+    with Counted(kernels, totals):
+        A, A_plain, b = phase_d(rt, kernels)
+        phase_solve(rt, kernels, "E", f"random_banded_spd({RAND_N}) f64",
+                    rand64, "gather_f64", 1e-8, 1e-6)
+        phase_solve(rt, kernels, "F", f"random_banded_spd({RAND_N}) f32",
+                    rand32, "gather_f32", 1e-5, 1e-3)
+        phase_solve(rt, kernels, "F", f"laplacian_3d({LAP_N}) f32 split_dia="
+                    "False", lap32, "roll_f32", 1e-5, 1e-3)
     phase_g(rt, {f"laplacian_3d({LAP_N}) f64 WJD": (A, b, None),
                  f"laplacian_3d({LAP_N}) f64 plain CSR": (A_plain, b, False)})
+    phase_g_host(rt, kernels, A, A_plain)
+    del A_plain, b
 
-    rows = [{"name": f"wjd_spmv_{key}", "route": "cuda", "source": SOURCE,
-             "replaces": REPLACES[key], "launches": launches[key],
-             **measured[key]} for key in REPLACES]
+    measured.update(phase_h(rt, kernels, totals, ops, measured))
+    phase_j(rt, kernels, totals, lap64, rand64)
+    del ops, lap64, lap32, rand64, rand32, A
+    torch.cuda.empty_cache()
+
+    measured.update(phase_i(
+        rt, kernels, totals, f"laplacian_3d({WIN_LAP64_N}) f64 auto-attach",
+        lambda: rt.laplacian_3d(WIN_LAP64_N), "win_roll_f64", None, 1e-8,
+        1e-6))
+    torch.cuda.empty_cache()
+    measured.update(phase_i(
+        rt, kernels, totals, f"laplacian_3d({WIN_LAP32_N}) f32 split_dia="
+        "False", lambda: rt.laplacian_3d(WIN_LAP32_N, dtype=np.float32),
+        "win_roll_f32", {"split_dia": False}, 1e-6, 1e-3))
+    torch.cuda.empty_cache()
+    measured.update(phase_i(
+        rt, kernels, totals, f"random_banded_spd({WIN_RAND_N}) f32",
+        lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
+        "win_gather_f32", {}, 1e-5, 1e-3))
+
+    idle = [k for k in KERNELS if not totals.get(k)]
+    if idle:
+        raise RuntimeError(f"the main paths never launched {idle}")
+    rows = [{"name": name, "route": "cuda", "source": CSRC + src,
+             "replaces": f"{TPU}{line}", "launches": totals[key],
+             **measured[key]} for key, (name, src, line) in KERNELS.items()]
+    say("end", f"{time.perf_counter() - t_start:.0f} s in all")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

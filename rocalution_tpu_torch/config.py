@@ -2,7 +2,10 @@
 
 Counterpart of rocalution_tpu/config.py: a small typed config of dtype
 policy, the default device and the WJD auto-attach switch. The default
-device is explicit: nothing here picks "cuda if available".
+device is the card ("cuda"). It is not probed and does not give way to the
+CPU: without a card a constructor raises torch's own error unless the
+caller passes ``device="cpu"`` or calls ``set_default_device("cpu")``.
+Importing the package makes no tensor, so it needs no card.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ class Config:
 
     # rocALUTION defaults to double precision everywhere; so does the port.
     default_dtype: torch.dtype = torch.float64
-    # Device that constructors use when none is given.
-    default_device: torch.device = torch.device("cpu")
+    # Device that constructors use when none is given: the card.
+    default_device: torch.device = torch.device("cuda")
     # Auto-attach the WJD fast-apply representation when a CSR operand
     # reaches a solver. None = decide by the operand: on when its tensors
     # live on CUDA, where the hand-written WJD kernels serve the apply.

@@ -49,6 +49,15 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def expand(vals, x_gathered):
+    """vals * x_gathered with 1-D nonzero values broadcast over the
+    trailing right-hand-side dimension of a gathered (…, k) x."""
+    if x_gathered.dim() == vals.dim():
+        return vals * x_gathered
+    return vals[(...,) + (None,) * (x_gathered.dim() - vals.dim())] \
+        * x_gathered
+
+
 def set_host_cache(obj, **arrays) -> None:
     object.__setattr__(obj, "_host_cache", dict(arrays))
 

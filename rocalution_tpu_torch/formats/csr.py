@@ -76,6 +76,17 @@ class CSR(MatrixBase):
         indptr = np.cumsum(indptr)
         return CSR.from_arrays(vals, cols, indptr, shape, device=device)
 
+    @staticmethod
+    def from_dense(dense, device=None) -> "CSR":
+        d = np.asarray(dense)
+        rows, cols = np.nonzero(d)
+        return CSR.from_coo(rows, cols, d[rows, cols], d.shape, device=device)
+
+    def to_dense(self) -> torch.Tensor:
+        out = self.data.new_zeros(self.shape)
+        return out.index_put_((self.row_ids.long(), self.indices.long()),
+                              self.data, accumulate=True)
+
     def numpy_triplet(self):
         """Host CSR triplet from the host cache (no device read)."""
         return (

@@ -12,22 +12,25 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .base import MatrixBase, set_host_cache, to_device
+from .base import MatrixBase, expand, get_host, set_host_cache, to_device
 
 
 def dia_apply(data, offsets, shape, x):
-    """DIA apply: pad x once; every diagonal is a shifted slice of it."""
+    """DIA apply for x of shape (m,) or (m, k): pad x once; every diagonal
+    is a shifted slice of it."""
     n, m = shape
+    tail = tuple(x.shape[1:])
     if not offsets:
-        return x.new_zeros(n)
+        return x.new_zeros((n,) + tail)
     lo_pad = max(0, -min(offsets))
     hi_pad = max(0, max(offsets) + n - m)
-    xpad = torch.cat([x.new_zeros(lo_pad), x, x.new_zeros(hi_pad)])
+    xpad = torch.cat([x.new_zeros((lo_pad,) + tail), x,
+                      x.new_zeros((hi_pad,) + tail)])
     y = None
     for d, off in enumerate(offsets):
         # rows outside [max(0,-off), min(n, m-off)) see zero: padded x is
         # zero there, and so is the diagonal's data
-        seg = data[d, :n] * xpad[lo_pad + off: lo_pad + off + n]
+        seg = expand(data[d, :n], xpad[lo_pad + off: lo_pad + off + n])
         y = seg if y is None else y + seg
     return y
 
@@ -41,6 +44,21 @@ class DIA(MatrixBase):
     @property
     def ndiag(self) -> int:
         return len(self.offsets)
+
+    @property
+    def nnz(self) -> int:
+        """True nonzero count (explicit zeros in the band are not counted)."""
+        return int(np.count_nonzero(get_host(self, "data")))
+
+    def to_dense(self) -> torch.Tensor:
+        n, m = self.shape
+        out = self.data.new_zeros((n, m))
+        rows = torch.arange(n, device=self.data.device)
+        for d, off in enumerate(self.offsets):
+            cols = rows + off
+            valid = (cols >= 0) & (cols < m)
+            out[rows[valid], cols[valid]] += self.data[d, :n][valid]
+        return out
 
     @staticmethod
     def from_csr_host(csr, device=None) -> "DIA":

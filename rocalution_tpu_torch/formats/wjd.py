@@ -56,8 +56,8 @@ class WJD(MatrixBase):
     # (Tp, K, 8, 128) local offsets in [0, win); uint8 when win <= 256,
     # else int16. None in roll mode, where u is diag_u for the whole slot.
     uloc: Optional[torch.Tensor] = None
-    # per-step first x row of the step's window ((nsteps,) int32); kept for
-    # the windowed kernels that are still to be ported
+    # per-step first x row of the step's window ((nsteps,) int32): the
+    # windowed kernels address x relative to it (see `windowed`)
     win_base: Optional[torch.Tensor] = None
     # hybrid DIA split: dia_data[k, r] = A[r, r + dia_offsets[k]]
     dia_data: Optional[torch.Tensor] = None
@@ -282,7 +282,9 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
 
 
 # x-plane size above which the JAX planner sizes groups for its windowed
-# TPU kernels; kept so the plans (group, Tp) stay equal
+# TPU kernels and above which those kernels run (`windowed`). Kept so the
+# plans (group, Tp) and the choice of kernel stay equal; it is the
+# reference's rule, not a statement about Hopper's memory.
 X_VMEM_BUDGET = 12 << 20
 
 
@@ -410,12 +412,10 @@ def _assemble(vals_k, rows_k, u_k, t_k, k_e, K, n, m, nnz, wlog,
     )
 
 
-def _check_x_reach(plan: dict) -> None:
-    """Raise ValueError unless every slot load (brow + s)*128 + l + u lies
-    in [0, xp_len): the CUDA kernels read x without bounds checks."""
+def _slot_reach(plan: dict):
+    """(brow, u_lo, u_hi) as (Tp, K) int64: each slot's base row and the
+    extremes of its local offsets u."""
     brow = np.asarray(plan["brow"], np.int64)
-    if brow.size == 0:
-        return
     mode = plan["kernel_mode"]
     if mode == "roll":
         u_lo = u_hi = np.asarray(plan["diag_u"], np.int64)
@@ -424,9 +424,17 @@ def _check_x_reach(plan: dict) -> None:
             raise ValueError("gather-mode WJD plan needs a (Tp, K, 8, 128) "
                              "uloc plane")
         u = np.asarray(plan["uloc"]).reshape(brow.shape + (TILE,))
-        u_lo, u_hi = u.min(axis=2), u.max(axis=2).astype(np.int64)
+        u_lo, u_hi = u.min(axis=2).astype(np.int64), u.max(axis=2).astype(
+            np.int64)
     else:
         raise ValueError(f"unknown WJD kernel mode {mode!r}")
+    return brow, u_lo, u_hi
+
+
+def _check_x_reach(plan: dict, reach) -> None:
+    """Raise ValueError unless every slot load (brow + s)*128 + l + u lies
+    in [0, xp_len): the CUDA kernels read x without bounds checks."""
+    brow, u_lo, u_hi = reach
     lowest = int((brow * 128 + u_lo).min())
     deepest = int(((brow + 7) * 128 + 127 + u_hi).max())
     if lowest < 0 or deepest >= int(plan["xp_len"]):
@@ -434,10 +442,59 @@ def _check_x_reach(plan: dict) -> None:
                          f"x[{deepest}], outside xp_len={plan['xp_len']}")
 
 
+def _check_windows(plan: dict, reach) -> None:
+    """Raise ValueError unless every slot of grid step i reads x only
+    inside the step's window, rows [win_base[i], win_base[i] + win_rows):
+    0 <= brow - win_base[i], brow - win_base[i] + load rows <= win_rows
+    (the planner's invariants, empty slots included: they are re-based to
+    the window), every load offset inside [0, win_rows*128), and the last
+    window inside padded x. The windowed kernels rely on it."""
+    brow, u_lo, u_hi = reach
+    wb = np.asarray(plan["win_base"], np.int64)
+    win_rows, group = int(plan["win_rows"]), int(plan["group"])
+    Tp, K = brow.shape
+    if group <= 0 or Tp % group or wb.shape != (Tp // group,):
+        raise ValueError(f"bad WJD plan: win_base {wb.shape} does not match "
+                         f"Tp={Tp} tiles in groups of {group}")
+    local = brow.reshape(-1, group * K) - wb[:, None]     # (nsteps, group*K)
+    nj = (1 << int(plan["wlog"])) // 128 + 1
+    load = _load_rows(nj) + (8 if plan["kernel_mode"] == "roll" else 0)
+    lo = local * 128 + u_lo.reshape(local.shape)
+    hi = (local + 7) * 128 + 127 + u_hi.reshape(local.shape)
+    if (int(local.min()) < 0 or int(local.max()) + load > win_rows
+            or int(lo.min()) < 0 or int(hi.max()) >= win_rows * 128):
+        raise ValueError(
+            f"bad WJD plan: slot base rows {int(local.min())} .. "
+            f"{int(local.max())} (+{load} load rows) leave the step window "
+            f"of win_rows={win_rows}")
+    if int(wb.min()) < 0 or (int(wb.max()) + win_rows) * 128 > int(
+            plan["xp_len"]):
+        raise ValueError(
+            f"bad WJD plan: window rows {int(wb.min())} .. "
+            f"{int(wb.max()) + win_rows} pass xp_len={plan['xp_len']}")
+
+
+def windowed(A: WJD, dtype: torch.dtype) -> bool:
+    """Does an x of `dtype` take the windowed kernels on this plan? The JAX
+    package's rule for which kernel runs: the padded x plane passes
+    X_VMEM_BUDGET and the plan carries windows; gather mode has a windowed
+    kernel in f32 only, so gather-mode f64 stays on the direct kernel."""
+    if A.win_base is None:
+        return False
+    if A.xp_len * dtype.itemsize <= X_VMEM_BUDGET:
+        return False
+    return A.kernel_mode == "roll" or dtype == torch.float32
+
+
 def _plan_to_wjd(plan: dict, device) -> WJD:
     """Materialize a host plan as a WJD on ``device`` (one upload per
-    array), after checking that no slot load leaves padded x."""
-    _check_x_reach(plan)
+    array), after checking that no slot load leaves padded x or, where
+    the plan has per-step windows, its step's window."""
+    if np.asarray(plan["brow"]).size:
+        reach = _slot_reach(plan)
+        _check_x_reach(plan, reach)
+        if plan.get("win_base") is not None:
+            _check_windows(plan, reach)
 
     def put(name, dt=None):
         a = plan.get(name)

@@ -1,7 +1,8 @@
 """Carry operands across from the JAX package as numpy arrays.
 
 Nothing here imports jax: callers hand over numpy arrays (for example
-``{k: np.asarray(v) for k, v in ...}`` of a JAX ``WJD``'s fields).
+``{k: np.asarray(v) for k, v in ...}`` of a JAX ``WJD``'s fields; a field
+that is itself a matrix, such as ``HYB.ell``, becomes a dict of its own).
 """
 
 from __future__ import annotations
@@ -9,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 
 from .config import resolve_device
-from .formats.csr import CSR
-from .formats.wjd import WJD, _plan_to_wjd
+from .formats import BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD
+from .formats.base import set_host_cache, to_device
+from .formats.wjd import _plan_to_wjd
 
 _WJD_ARRAYS = ("data", "uloc", "brow", "diag_u", "win_base", "dia_data",
                "spill_row", "spill_col", "spill_val")
@@ -37,3 +39,53 @@ def wjd_from_numpy(fields: dict, device=None) -> WJD:
         plan["data"] = plan["data"].astype(np.float64) + np.asarray(
             lo).astype(np.float64)
     return _plan_to_wjd(plan, device=resolve_device(device))
+
+
+def matrix_from_numpy(fmt: str, fields: dict, device=None):
+    """Matrix of format `fmt` on ``device`` from the fields of the JAX
+    object of the same name as numpy arrays and plain values."""
+    device = resolve_device(device)
+    fmt = fmt.upper()
+    shape = tuple(int(v) for v in fields["shape"])
+    if fmt == "CSR":
+        return csr_from_numpy(fields["data"], fields["indices"],
+                              fields["indptr"], shape, device=device)
+    if fmt == "COO":
+        return COO.from_arrays(fields["row"], fields["col"], fields["data"],
+                               shape, device=device)
+    if fmt == "ELL":
+        return ELL.from_host_planes(np.asarray(fields["data"]),
+                                    np.asarray(fields["indices"], np.int32),
+                                    shape, device)
+    if fmt == "HYB":
+        return HYB(ell=matrix_from_numpy("ELL", fields["ell"], device),
+                   coo=matrix_from_numpy("COO", fields["coo"], device),
+                   shape=shape)
+    if fmt == "MCSR":
+        diag = np.asarray(fields["diag"])
+        out = MCSR(diag=to_device(diag, device), shape=shape,
+                   offd=matrix_from_numpy("CSR", fields["offd"], device))
+        set_host_cache(out, diag=diag)
+        return out
+    if fmt == "DENSE":
+        return DENSE.from_array(fields["data"], device=device)
+    if fmt == "DIA":
+        dat = np.asarray(fields["data"])
+        out = DIA(data=to_device(dat, device), shape=shape,
+                  offsets=tuple(int(o) for o in fields["offsets"]))
+        set_host_cache(out, data=dat)
+        return out
+    if fmt == "BCSR":
+        blocks = np.asarray(fields["data"])
+        cols = np.asarray(fields["indices"], np.int32)
+        rows = np.asarray(fields["row_ids"], np.int64)
+        out = BCSR(data=to_device(blocks, device),
+                   indices=to_device(cols, device),
+                   indptr=to_device(fields["indptr"], device, np.int32),
+                   row_ids=to_device(rows, device, np.int32),
+                   block_dim=int(fields["block_dim"]), shape=shape)
+        set_host_cache(out, data=blocks, indices=cols, row_ids=rows)
+        return out
+    if fmt == "WJD":
+        return wjd_from_numpy(fields, device=device)
+    raise ValueError(f"unknown format {fmt!r}")

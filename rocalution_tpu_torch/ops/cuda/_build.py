@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``rocalution_tpu_torch/_build/``, keyed by a
-hash of the source and the flags, then loaded with ``ctypes``. Nothing is
+hash of the source and the flags, then loaded with ``ctypes``. The first
+load builds all sources at once, one ``nvcc`` process each. Nothing is
 built when a module is imported: only a launch on a CUDA tensor builds.
 """
 
@@ -43,29 +44,43 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a temporary name, then rename: a concurrent or cut
-        # build never leaves a partial library under the final name
+def build_all() -> None:
+    """Build every ``csrc/*.cu`` whose library is missing: one nvcc per
+    source, all started together. Each compiles to a temporary name that
+    is renamed at the end, so a concurrent or cut build never leaves a
+    partial library under the final name."""
+    missing = [src.stem for src in sorted(CSRC.glob("*.cu"))
+               if not library_path(src.stem).exists()]
+    if not missing:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in missing:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        try:
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {name}:\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
-    _loaded[name] = lib
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))
+        else:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}:\n{out}")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library, building the package's sources
+    first where a library is missing; cached per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all()
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

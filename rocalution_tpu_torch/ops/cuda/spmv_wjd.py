@@ -1,13 +1,21 @@
-"""WJD SpMV: hand-written Hopper kernels, their wrapper and plain version.
+"""WJD SpMV and SpMM: hand-written Hopper kernels, wrappers, plain versions.
 
-Counterpart of rocalution_tpu/ops/pallas/spmv_wjd.py. The four single-RHS
-Pallas kernels (`_kernel`, `_kernel_roll`, `_kernel_ff`, `_kernel_roll_ff`)
-are one templated CUDA kernel in ``csrc/spmv_wjd.cu`` with four C entry
-points; see that file for the design. The wrapper pads x, launches on the
-current stream, adds the COO spill and the DIA part, and trims to n.
+Counterpart of rocalution_tpu/ops/pallas/spmv_wjd.py. Its eight Pallas
+kernels are three templated CUDA kernels here:
+
+* ``csrc/spmv_wjd.cu``: the direct single-RHS kernels (`_kernel`,
+  `_kernel_roll`, `_kernel_ff`, `_kernel_roll_ff`), four C entry points;
+* ``csrc/spmv_wjd_win.cu``: the same product with x read through per-step
+  windows (`_kernel_hbm`, `_kernel_roll_hbm`, `_kernel_roll_ff_hbm`), for
+  plans in the windowed regime (formats/wjd.py:`windowed`);
+* ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
+  16 columns a launch.
+
+See those files for the designs. The wrappers pad x, launch on the current
+stream, add the COO spill and the DIA part, and trim to n.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-PyTorch version (``wjd_reference``), which is also the oracle the kernels
+PyTorch version (``slots_plain*``), which is also the oracle the kernels
 are checked against on the card.
 """
 
@@ -18,64 +26,125 @@ import ctypes
 import torch
 
 from ...formats.dia import dia_apply
-from ...formats.wjd import TILE, WJD
+from ...formats.wjd import TILE, WJD, windowed
 from . import _build
 
 # Kernel launches per entry point, counted where the wrapper launches.
-launches = {"roll_f64": 0, "gather_f64": 0, "roll_f32": 0, "gather_f32": 0}
+launches = {
+    "roll_f64": 0, "gather_f64": 0, "roll_f32": 0, "gather_f32": 0,
+    "win_roll_f64": 0, "win_roll_f32": 0, "win_gather_f32": 0,
+    "spmm_roll_f64": 0, "spmm_gather_f64": 0, "spmm_roll_f32": 0,
+    "spmm_gather_f32": 0,
+}
+
+# columns one SpMM launch serves; the kernel is instantiated for these
+# widths, and a narrower chunk is padded up with zero columns
+MRHS_MAX_COLS = 16
+_MRHS_WIDTHS = (4, 8, 16)
 
 _DTYPE_TAG = {torch.float64: "f64", torch.float32: "f32"}
 _ULOC_DTYPES = (torch.uint8, torch.int16)
-_P = ctypes.c_void_p
-_ARGTYPES = {
-    # data, brow, diag_u, xp, y, Tp, K, stream
-    "roll": [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-    # data, brow, uloc, uloc_bytes, xp, y, Tp, K, stream
-    "gather": [_P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int64,
-               ctypes.c_int, _P],
+_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# (library, prefix of the launch counters, argument types after the slot
+# operands) per family; the slot operands are data, brow, then diag_u
+# (roll) or uloc, uloc_bytes (gather)
+_FAMILIES = {
+    # xp, y, Tp, K, stream
+    "spmv": ("spmv_wjd", "", [_P, _P, _I64, _INT, _P]),
+    # win_base, xp, y, Tp, K, group, win_rows, stream
+    "spmv_win": ("spmv_wjd_win", "win_",
+                 [_P, _P, _P, _I64, _INT, _INT, _INT, _P]),
+    # xp, y, Tp, K, kc, row_major, xp_len, stream
+    "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _INT, _INT, _I64, _P]),
 }
+_SLOT_ARGS = {"roll": [_P, _P, _P], "gather": [_P, _P, _P, _INT]}
 
 
-def build() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    return _build.load("spmv_wjd")
+def build() -> None:
+    """Build (at first use) the package's kernel libraries."""
+    _build.build_all()
 
 
-def _entry(mode: str, tag: str):
-    fn = getattr(build(), f"wjd_spmv_{mode}_{tag}")
+def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
+    """Call entry point wjd_<family>_<mode>_<tag> on the current stream of
+    xp's device; raise unless the launch succeeds; count it."""
+    lib, prefix, tail = _FAMILIES[family]
+    name = f"wjd_{family}_{A.kernel_mode}_{tag}"
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[mode]
-        fn.restype = ctypes.c_int
-    return fn
+        fn.argtypes = _SLOT_ARGS[A.kernel_mode] + tail
+        fn.restype = _INT
+    if A.kernel_mode == "roll":
+        slot = (A.data.data_ptr(), A.brow.data_ptr(), A.diag_u.data_ptr())
+    else:
+        slot = (A.data.data_ptr(), A.brow.data_ptr(), A.uloc.data_ptr(),
+                A.uloc.element_size())
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        rc = fn(*slot, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    launches[f"{prefix}{A.kernel_mode}_{tag}"] += 1
 
 
-def pad_x(A: WJD, x: torch.Tensor) -> torch.Tensor:
-    """x with pad_lo zeros in front, zero-padded to xp_len."""
+def pad_x(A: WJD, x: torch.Tensor, cols: int = 0) -> torch.Tensor:
+    """x of shape (m,) or (m, k) with pad_lo zero rows in front, zero-padded
+    to xp_len rows and, for a 2-D x, to `cols` columns (row-major)."""
     m = A.shape[1]
     if A.xp_len % 128 or A.xp_len < A.pad_lo + m:
         raise ValueError(f"bad WJD plan: xp_len={A.xp_len}, pad_lo="
                          f"{A.pad_lo}, ncol={m}")
-    xp = x.new_zeros(A.xp_len)
-    xp[A.pad_lo:A.pad_lo + m] = x
+    if x.dim() == 1:
+        xp = x.new_zeros(A.xp_len)
+        xp[A.pad_lo:A.pad_lo + m] = x
+    else:
+        xp = x.new_zeros((A.xp_len, max(cols, x.shape[1])))
+        xp[A.pad_lo:A.pad_lo + m, :x.shape[1]] = x
     return xp
 
 
-def slots_plain(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Plain slot product: y[t,s,l] = sum_k data[t,k,s,l] *
-    xp[(brow[t,k] + s)*128 + l + u[t,k,s,l]], summed in the value type."""
-    dev = xp.device
+def _slot_index(A: WJD, base: torch.Tensor) -> torch.Tensor:
+    """(Tp, K, 8, 128) element offsets (base[t,k] + s)*128 + l + u."""
+    dev = base.device
     s = torch.arange(8, device=dev).view(1, 1, 8, 1)
     l = torch.arange(128, device=dev).view(1, 1, 1, 128)
     if A.uloc is not None:
         u = A.uloc.long()
     else:                         # roll mode: one offset per slot
         u = A.diag_u.long()[:, :, None, None]
-    idx = (A.brow.long()[:, :, None, None] + s) * 128 + l + u
-    return (A.data * xp[idx]).sum(dim=1)
+    return (base[:, :, None, None] + s) * 128 + l + u
 
 
-def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Slot product through the hand-written kernel (CUDA tensors only)."""
+def slots_plain(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain slot product: y[t,s,l] = sum_k data[t,k,s,l] *
+    xp[(brow[t,k] + s)*128 + l + u[t,k,s,l]], summed in the value type."""
+    return (A.data * xp[_slot_index(A, A.brow.long())]).sum(dim=1)
+
+
+def slots_plain_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain slot product with x read through the per-step windows: tile t
+    of step t // group addresses xp from row win_base[step] on, with slot
+    base brow - win_base[step]. Raises IndexError if a load leaves its
+    window of win_rows rows."""
+    wb = A.win_base.long().repeat_interleave(A.group)[:, None]      # (Tp, 1)
+    local = _slot_index(A, A.brow.long() - wb)
+    if local.numel() and (int(local.min()) < 0
+                          or int(local.max()) >= A.win_rows * 128):
+        raise IndexError(f"a slot load leaves its x window of "
+                         f"{A.win_rows} rows")
+    return (A.data * xp[wb[:, :, None, None] * 128 + local]).sum(dim=1)
+
+
+def slots_plain_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain blocked-RHS slot product: `slots_plain` per column of the
+    row-major (xp_len, kc) padded X; returns (Tp*1024, kc)."""
+    cols = [slots_plain(A, xp[:, j].contiguous()).reshape(-1)
+            for j in range(xp.shape[1])]
+    return torch.stack(cols, dim=1)
+
+
+def _check_operands(A: WJD, xp: torch.Tensor) -> str:
+    """Raise unless the kernels take these operands; return the dtype tag."""
     tag = _DTYPE_TAG.get(A.data.dtype)
     if tag is None or xp.dtype != A.data.dtype:
         raise TypeError(f"WJD kernel takes f32/f64 values with x of the same "
@@ -91,38 +160,82 @@ def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
         if t.device != xp.device or not t.is_contiguous():
             raise ValueError("WJD kernel operands must be contiguous and on "
                              f"{xp.device}")
+    if not xp.is_cuda:
+        raise ValueError("WJD kernels take CUDA tensors only")
     if A.brow.dtype != torch.int32 or A.diag_u.dtype != torch.int32:
         raise TypeError("WJD brow/diag_u must be int32")
     Tp, K = A.brow.shape
     if tuple(A.data.shape) != (Tp, K, 8, 128):
         raise ValueError(f"WJD data shape {tuple(A.data.shape)} != "
                          f"{(Tp, K, 8, 128)}")
+    return tag
+
+
+def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Slot product through the direct kernel (CUDA tensors only)."""
+    tag = _check_operands(A, xp)
+    if tuple(xp.shape) != (A.xp_len,):
+        raise ValueError(f"padded x must have shape ({A.xp_len},)")
+    Tp, K = A.brow.shape
     y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        fn = _entry(A.kernel_mode, tag)
-        if A.kernel_mode == "roll":
-            rc = fn(A.data.data_ptr(), A.brow.data_ptr(),
-                    A.diag_u.data_ptr(), xp.data_ptr(), y.data_ptr(),
-                    Tp, K, stream)
-        else:
-            rc = fn(A.data.data_ptr(), A.brow.data_ptr(),
-                    A.uloc.data_ptr(), A.uloc.element_size(), xp.data_ptr(),
-                    y.data_ptr(), Tp, K, stream)
-    if rc != 0:
-        raise RuntimeError(f"wjd_spmv_{A.kernel_mode}_{tag} launch failed: "
-                           f"CUDA error {rc}")
-    launches[f"{A.kernel_mode}_{tag}"] += 1
+    _launch("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K)
     return y
 
 
-def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
-    n, m = A.shape
-    if x.dim() != 1 or x.shape[0] != m:
-        raise ValueError(f"x must have shape ({m},), got {tuple(x.shape)}")
+def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Slot product through the windowed kernel (CUDA tensors only)."""
+    tag = _check_operands(A, xp)
+    if tuple(xp.shape) != (A.xp_len,):
+        raise ValueError(f"padded x must have shape ({A.xp_len},)")
+    Tp, K = A.brow.shape
+    wb = A.win_base
+    if (wb is None or wb.dtype != torch.int32 or wb.device != xp.device
+            or not wb.is_contiguous() or A.group <= 0 or Tp % A.group
+            or tuple(wb.shape) != (Tp // A.group,) or A.win_rows <= 0):
+        raise ValueError("windowed WJD kernel needs an int32 win_base of "
+                         "one entry per step of `group` tiles")
+    if A.kernel_mode == "gather" and tag != "f32":
+        raise TypeError("gather mode has a windowed kernel in f32 only")
+    y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
+    _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
+            y.data_ptr(), Tp, K, A.group, A.win_rows)
+    return y
+
+
+def slots_kernel_mrhs(A: WJD, xp: torch.Tensor,
+                      row_major: bool = True) -> torch.Tensor:
+    """Blocked-RHS slot product through the SpMM kernel (CUDA tensors
+    only). xp is padded X of 4, 8 or 16 columns: (xp_len, kc) and the
+    result (Tp*1024, kc) when `row_major`, which is what `wjd_spmm` uses;
+    else planes (kc, xp_len) and (kc, Tp*1024), the reference's layout,
+    kept so that both can be timed on the same operands (PERF.md)."""
+    tag = _check_operands(A, xp)
+    kc = xp.shape[1 if row_major else 0] if xp.dim() == 2 else 0
+    want = (A.xp_len, kc) if row_major else (kc, A.xp_len)
+    if kc not in _MRHS_WIDTHS or tuple(xp.shape) != want:
+        raise ValueError(f"padded X must have {_MRHS_WIDTHS} columns of "
+                         f"{A.xp_len} rows, got {tuple(xp.shape)}")
+    Tp, K = A.brow.shape
+    shape = (Tp * TILE, kc) if row_major else (kc, Tp * TILE)
+    y = torch.empty(shape, dtype=xp.dtype, device=xp.device)
+    _launch("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K, kc,
+            int(row_major), A.xp_len)
+    return y
+
+
+def _check_x(A: WJD, x: torch.Tensor, dim: int) -> None:
+    m = A.shape[1]
+    if x.dim() != dim or x.shape[0] != m:
+        want = f"({m},)" if dim == 1 else f"({m}, k)"
+        raise ValueError(f"x must have shape {want}, got {tuple(x.shape)}")
     if x.dtype != A.data.dtype or x.device != A.data.device:
         raise TypeError(f"x ({x.dtype}, {x.device}) does not match the WJD "
                         f"operand ({A.data.dtype}, {A.data.device})")
+
+
+def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
+    n = A.shape[0]
+    _check_x(A, x, 1)
     if A.nnz == 0:
         y = x.new_zeros(n)
     else:
@@ -135,15 +248,56 @@ def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
     return y
 
 
+def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
+    """The reference's outer structure (`wjd_spmm`): DIA part, empty plan,
+    column chunks of at most MRHS_MAX_COLS, COO spill, trim to n."""
+    n = A.shape[0]
+    _check_x(A, X, 2)
+    k = X.shape[1]
+    if A.nnz == 0 or k == 0:
+        Y = X.new_zeros((n, k))
+    else:
+        outs = []
+        for j0 in range(0, k, MRHS_MAX_COLS):
+            kc = min(MRHS_MAX_COLS, k - j0)
+            width = next(w for w in _MRHS_WIDTHS if w >= kc)
+            y = slots(A, pad_x(A, X[:, j0:j0 + kc], width))
+            outs.append(y[:n, :kc])
+        Y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
+        if A.spill_row.numel():
+            Y.index_add_(0, A.spill_row, A.spill_val[:, None]
+                         * X.index_select(0, A.spill_col))
+    if A.dia_data is not None:
+        Y = Y + dia_apply(A.dia_data, A.dia_offsets, A.shape, X)
+    return Y
+
+
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain version."""
-    return _apply(A, x, slots_kernel if x.is_cuda else slots_plain)
+    launches a kernel, the windowed one where the plan is in the windowed
+    regime for x's dtype; a CPU tensor takes the plain version of the
+    same."""
+    if windowed(A, x.dtype):
+        slots = slots_kernel_windowed if x.is_cuda else slots_plain_windowed
+    else:
+        slots = slots_kernel if x.is_cuda else slots_plain
+    return _apply(A, x, slots)
+
+
+def wjd_spmm(A: WJD, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for X of shape (m, k): blocked right-hand sides, at most
+    MRHS_MAX_COLS columns a launch. A CUDA tensor launches the SpMM kernel;
+    a CPU tensor takes the plain version."""
+    return _apply_mrhs(A, X, slots_kernel_mrhs if X.is_cuda
+                       else slots_plain_mrhs)
 
 
 def wjd_reference(A: WJD, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch WJD SpMV (gather + sum over slots) on any device."""
-    return _apply(A, x, slots_plain)
+    """Plain PyTorch WJD product (gather + sum over slots) on any device,
+    for x of shape (m,) or (m, k)."""
+    if x.dim() == 1:
+        return _apply(A, x, slots_plain)
+    return _apply_mrhs(A, x, slots_plain_mrhs)
 
 
 def slot_bytes(A: WJD) -> int:

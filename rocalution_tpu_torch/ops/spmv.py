@@ -1,14 +1,21 @@
-"""Sparse matrix–vector products for the ported formats.
+"""Sparse matrix-vector (and multi-vector) products for every format.
 
 Counterpart of rocalution_tpu/ops/spmv.py:
 
-* CSR → gather + `index_add_` (the plain path), or the attached WJD plan;
-* DIA → pad x once, then one shifted slice per diagonal;
-* WJD → the hand-written Hopper kernels (ops/cuda/spmv_wjd.py).
+* CSR/COO -> gather + `index_add_` (the plain path), or the attached WJD;
+* ELL     -> one gather + dense (nrow, width) multiply + row reduction;
+* DIA     -> pad x once, then one shifted slice per diagonal;
+* BCSR    -> one batched product over the dense blocks;
+* MCSR    -> diagonal multiply + CSR off-diagonal part;
+* DENSE   -> plain matrix product;
+* WJD     -> the hand-written Hopper kernels (ops/cuda/spmv_wjd.py).
+
+`x` may be (m,) or (m, k): every path serves blocked right-hand sides.
 
 `attach_wjd` builds a WJD plan for a host-built CSR (the analog of
 rocSPARSE csrmv analysis); solvers auto-attach through `as_operator` when
-the operand lives on CUDA (config.auto_wjd).
+the operand lives on CUDA (config.auto_wjd), and route ELL, HYB and BCSR
+operands through a WJD plan as well.
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from ..formats import CSR, DIA, WJD
+from ..formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
+                       MatrixBase)
+from ..formats.base import expand
 from ..formats.dia import dia_apply
-from .cuda.spmv_wjd import wjd_spmv
+from .cuda.spmv_wjd import wjd_spmm, wjd_spmv
 
 
 @functools.singledispatch
@@ -35,9 +44,14 @@ def spmv(A, x):
 @spmv.register(WJD)
 def _spmv_wjd(A: WJD, x):
     if x.dim() != 1:
-        raise NotImplementedError(
-            "multi-RHS WJD SpMM (the blocked-RHS kernel) is not ported yet")
+        return wjd_spmm(A, x)
     return wjd_spmv(A, x)
+
+
+def _segment_sum(prod, rows, nrow: int):
+    """Sum the rows of `prod` into `nrow` segments by row index."""
+    out = prod.new_zeros((nrow,) + tuple(prod.shape[1:]))
+    return out.index_add_(0, rows, prod)
 
 
 @spmv.register(CSR)
@@ -45,8 +59,8 @@ def _spmv_csr(A: CSR, x):
     wjd = getattr(A, "_wjd_cache", None)
     if wjd is not None and _use_kernel(wjd, x.dtype):
         return spmv(wjd, x)
-    prod = A.data * x.index_select(0, A.indices)
-    return prod.new_zeros(A.shape[0]).index_add_(0, A.row_ids, prod)
+    prod = expand(A.data, x.index_select(0, A.indices))
+    return _segment_sum(prod, A.row_ids, A.shape[0])
 
 
 def _use_kernel(wjd: WJD, xdt) -> bool:
@@ -60,6 +74,69 @@ def _use_kernel(wjd: WJD, xdt) -> bool:
 @spmv.register(DIA)
 def _spmv_dia(A: DIA, x):
     return dia_apply(A.data, A.offsets, A.shape, x)
+
+
+@spmv.register(COO)
+def _spmv_coo(A: COO, x):
+    prod = expand(A.data, x.index_select(0, A.col))
+    return _segment_sum(prod, A.row, A.shape[0])
+
+
+def _routed(A, x):
+    """Serve an ELL/HYB/BCSR apply through an attached WJD plan."""
+    wjd = getattr(A, "_wjd_cache", None)
+    if wjd is not None and _use_kernel(wjd, x.dtype):
+        return spmv(wjd, x)
+    return None
+
+
+@spmv.register(ELL)
+def _spmv_ell(A: ELL, x):
+    y = _routed(A, x)
+    if y is not None:
+        return y
+    xs = x[A.indices.clamp(min=0).long()]          # (nrow, width[, k])
+    # padded entries have data == 0, so the product needs no mask
+    return expand(A.data, xs).sum(dim=1)
+
+
+@spmv.register(HYB)
+def _spmv_hyb(A: HYB, x):
+    y = _routed(A, x)
+    if y is not None:
+        return y
+    return _spmv_ell(A.ell, x) + _spmv_coo(A.coo, x)
+
+
+@spmv.register(BCSR)
+def _spmv_bcsr(A: BCSR, x):
+    y = _routed(A, x)
+    if y is not None:
+        return y
+    bd = A.block_dim
+    ncolb = -(-A.shape[1] // bd)
+    xk = x[:, None] if x.dim() == 1 else x
+    k = xk.shape[1]
+    pad = ncolb * bd - xk.shape[0]
+    if pad:
+        xk = torch.cat([xk, xk.new_zeros((pad, k))])
+    xb = xk.reshape(ncolb, bd, k)[A.indices.long()]     # (nnzb, bd, k)
+    yb = _segment_sum(torch.bmm(A.data, xb), A.row_ids, A.nrowb)
+    y = yb.reshape(A.nrowb * bd, k)[: A.shape[0]]
+    return y[:, 0] if x.dim() == 1 else y
+
+
+@spmv.register(MCSR)
+def _spmv_mcsr(A: MCSR, x):
+    n = min(A.shape)
+    y = _spmv_csr(A.offd, x)
+    y[:n] += expand(A.diag[:n], x[:n])
+    return y
+
+
+@spmv.register(DENSE)
+def _spmv_dense(A: DENSE, x):
+    return torch.matmul(A.data, x)
 
 
 def attach_wjd(A: CSR, **kwargs) -> CSR:
@@ -81,30 +158,50 @@ def _wjd_eligible(A: CSR) -> bool:
     return np.dtype(cache["data"].dtype) in (np.float32, np.float64)
 
 
-def _auto_wjd_on(A: CSR) -> bool:
+# formats whose plain apply is gather-bound: solvers route them through a
+# WJD conversion (the reference ships device SpMV kernels for them)
+_WJD_ROUTED = (ELL, HYB, BCSR)
+
+
+def _auto_wjd_on(A) -> bool:
     auto = get_config().auto_wjd
     if auto is None:
-        auto = A.data.is_cuda
+        auto = A.device.type == "cuda"
     return auto
 
 
 def maybe_attach_wjd(A):
-    """Auto-attach WJD to a host-built CSR when the fast path applies
-    (config.auto_wjd; default = when the operand's tensors live on CUDA).
-    The analog of the reference running csrmv analysis in Solver::Build."""
-    if not isinstance(A, CSR):
+    """Auto-attach WJD to a host-built CSR, and to ELL, HYB and BCSR
+    operands by way of CSR, when the fast path applies (config.auto_wjd;
+    default = when the operand's tensors live on CUDA). The analog of the
+    reference running csrmv analysis in Solver::Build. A conversion that
+    fails raises: there is no quiet way around the kernel."""
+    if not isinstance(A, (CSR,) + _WJD_ROUTED):
         return A
     if getattr(A, "_wjd_cache", None) is not None or not _auto_wjd_on(A):
         return A
-    if _wjd_eligible(A):
-        attach_wjd(A)
+    if isinstance(A, CSR):
+        if _wjd_eligible(A):
+            attach_wjd(A)
+        return A
+    # ELL/HYB/BCSR: by way of CSR, when host data is available
+    probe = A.ell if isinstance(A, HYB) else A
+    if not getattr(probe, "_host_cache", None):
+        return A
+    from ..formats.convert import to_csr
+    from ..formats.wjd import from_csr
+
+    csr = to_csr(A)
+    if _wjd_eligible(csr):
+        object.__setattr__(A, "_wjd_cache", from_csr(csr))
     return A
 
 
 def as_operator(A):
-    """Normalize a matrix / callable into a closure x -> A @ x. CSR operands
-    get the WJD fast path attached here (setup phase)."""
-    if callable(A) and not isinstance(A, (CSR, DIA, WJD)):
+    """Normalize a matrix / callable into a closure x -> A @ x. CSR, ELL,
+    HYB and BCSR operands get the WJD fast path attached here (setup
+    phase)."""
+    if callable(A) and not isinstance(A, MatrixBase):
         return A
     maybe_attach_wjd(A)
     return lambda x: spmv(A, x)

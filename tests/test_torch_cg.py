@@ -15,6 +15,15 @@ import rocalution_tpu as jrt
 import rocalution_tpu_torch as rt
 from rocalution_tpu.ops.spmv import attach_wjd as jax_attach_wjd
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port builds on the card by default; these tests ask for the CPU."""
+    before = rt.config.default_device()
+    rt.set_default_device("cpu")
+    yield
+    rt.set_default_device(before)
+
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
     "randband_3000": lambda m, dt: m.random_banded_spd(

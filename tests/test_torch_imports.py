@@ -15,6 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "rocalution_tpu")
 _PROBE = """
 import sys
 import rocalution_tpu_torch
+from rocalution_tpu_torch import interop
+from rocalution_tpu_torch.formats import (bcsr, convert, coo, dense, ell, hyb,
+                                          mcsr)
 from rocalution_tpu_torch.ops.cuda import _build, spmv_wjd
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 print(bad)
@@ -43,7 +46,9 @@ def test_no_module_names_jax():
 
 
 def test_public_surface():
-    for name in ("CSR", "DIA", "WJD", "spmv", "cg", "jacobi",
+    for name in ("CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE",
+                 "WJD", "convert", "to_csr", "cast_values", "wjd_spmv",
+                 "wjd_spmm", "attach_wjd", "spmv", "cg", "jacobi",
                  "IterationControl", "SolverInfo", "laplacian_2d",
                  "laplacian_3d", "random_banded_spd", "info", "sync",
                  "set_default_device"):
@@ -51,13 +56,42 @@ def test_public_surface():
 
 
 def test_default_device_is_explicit():
+    """Constructors build on "cuda" unless told otherwise; the setting is
+    not probed, so it holds on a machine without a card too."""
     import torch
 
     before = rt.config.default_device()
-    assert before == torch.device("cpu")
+    assert before == torch.device("cuda")
+    assert rt.config.Config().default_device == torch.device("cuda")
     rt.set_default_device("meta")
     try:
         assert rt.laplacian_2d(3).data.device == torch.device("meta")
     finally:
         rt.set_default_device(before)
-    assert rt.laplacian_2d(3).data.device == torch.device("cpu")
+    assert rt.config.default_device() == torch.device("cuda")
+
+
+def test_constructor_on_the_cpu_needs_no_card():
+    import numpy as np
+    import torch
+
+    cpu = torch.device("cpu")
+    A = rt.laplacian_2d(3, device="cpu")
+    assert A.data.device == cpu
+    for fmt in ("COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE", "WJD"):
+        assert rt.convert(A, fmt).device == cpu, fmt
+    assert rt.CSR.from_dense(np.eye(3), device="cpu").device == cpu
+    assert rt.COO.from_dense(np.eye(3), device="cpu").device == cpu
+    assert rt.DENSE.from_array(np.eye(3), device="cpu").device == cpu
+
+
+def test_constructor_without_a_card_raises():
+    """No quiet fallback to the CPU: without a card and without
+    device="cpu", torch's own error comes through."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        rt.laplacian_2d(3)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each WJD entry point against its
-plain PyTorch version, and the CG slice going through them.
+"""The port's CUDA kernels on the card: each WJD entry point (direct,
+windowed, blocked right-hand sides) against its plain PyTorch version, and
+the CG slice going through them.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor rocalution_tpu, so on a machine without JAX they run with
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 import rocalution_tpu_torch as rt
-from rocalution_tpu_torch.formats.wjd import from_csr
+import rocalution_tpu_torch.formats.wjd as wjd_mod
+from rocalution_tpu_torch.formats.wjd import from_csr, windowed
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +92,103 @@ def test_cg_on_cuda_goes_through_the_kernel(cuda_device):
                       max_iter=200)
     assert int(info.iterations) == int(infoc.iterations)
     torch.testing.assert_close(x.cpu(), xc, rtol=1e-9, atol=1e-10)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("row_major", [True, False])
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_spmm_kernel_matches_plain_version(cuda_device, key, row_major):
+    make, kw = CASES[key]
+    W = from_csr(make(), device=cuda_device, **kw)
+    for kc in (4, 8, 16):
+        X = _x(W.shape[1] * kc, W.data.dtype, cuda_device).view(-1, kc)
+        xp = kernels.pad_x(W, X, kc)
+        want = kernels.slots_plain_mrhs(W, xp)
+        before = kernels.launches[f"spmm_{key}"]
+        if row_major:
+            got = kernels.slots_kernel_mrhs(W, xp)
+        else:
+            got = kernels.slots_kernel_mrhs(W, xp.t().contiguous(),
+                                            row_major=False).t()
+        torch.cuda.synchronize()
+        assert kernels.launches[f"spmm_{key}"] == before + 1
+        assert _rel(got, want) <= TOL[W.data.dtype], (key, kc)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 20])
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_spmv_of_2d_x_goes_through_the_spmm_kernel(cuda_device, key, k):
+    make, kw = CASES[key]
+    A = make()
+    rt.attach_wjd(A, **kw)
+    assert A.data.is_cuda                      # the default device is the card
+    W = A._wjd_cache
+    X = _x(W.shape[1] * k, W.data.dtype, cuda_device).view(-1, k)
+    before = kernels.launches[f"spmm_{key}"]
+    Y = rt.spmv(A, X)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"spmm_{key}"] == before + -(-k // 16)
+    assert Y.shape == (A.shape[0], k)
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= TOL[W.data.dtype]
+    singles = torch.stack([kernels.wjd_spmv(W, X[:, j].contiguous())
+                           for j in range(k)], dim=1)
+    assert _rel(Y, singles) <= TOL[W.data.dtype]
+
+
+@pytest.mark.parametrize("key", ["roll_f64", "roll_f32", "gather_f32"])
+def test_windowed_kernel_matches_plain_version(cuda_device, key, monkeypatch):
+    # a small budget puts these operators in the windowed regime; one tile
+    # per step gives them two or three windows
+    monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1024)
+    monkeypatch.setattr(wjd_mod, "_auto_group", lambda K: 1)
+    monkeypatch.setattr(wjd_mod, "_auto_group_windowed", lambda K: 1)
+    make, kw = CASES[key]
+    W = from_csr(make(), device=cuda_device, **kw)
+    assert windowed(W, W.data.dtype) and len(W.win_base) > 1
+    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = kernels.launches[f"win_{key}"]
+    got = kernels.slots_kernel_windowed(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"win_{key}"] == before + 1
+    assert _rel(got, kernels.slots_plain_windowed(W, xp)) \
+        <= TOL[W.data.dtype]
+    # the entry point takes the windowed kernel by itself
+    y = kernels.wjd_spmv(W, x)
+    assert kernels.launches[f"win_{key}"] == before + 2
+    assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[W.data.dtype]
+
+
+def test_refused_launches_raise(cuda_device, monkeypatch):
+    W = from_csr(rt.random_banded_spd(3000, bandwidth=512),
+                 device=cuda_device)
+    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    with pytest.raises(TypeError):              # no windowed gather in f64
+        kernels.slots_kernel_windowed(W, kernels.pad_x(W, x))
+    with pytest.raises(ValueError):             # 5 columns: not a built width
+        kernels.slots_kernel_mrhs(W, kernels.pad_x(W, x[:, None], 5))
+    with pytest.raises(ValueError):             # CPU x against CUDA operands
+        kernels.slots_kernel(W, kernels.pad_x(W, x).cpu())
+    with pytest.raises(TypeError):
+        kernels.wjd_spmm(W, torch.ones((3000, 2), dtype=torch.float32,
+                                       device=cuda_device))
+
+
+@pytest.mark.parametrize("fmt", ["ELL", "HYB", "BCSR"])
+def test_routed_formats_go_through_the_kernel(cuda_device, fmt):
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    A = rt.random_banded_spd(3000, bandwidth=512)
+    B = rt.convert(A, fmt)
+    assert B.device.type == "cuda"
+    x = _x(3000, torch.float64, cuda_device)
+    want = rt.spmv(A, x)                        # plain CSR apply: no plan yet
+    assert getattr(A, "_wjd_cache", None) is None
+    op = as_operator(B)                         # a CUDA operand auto-attaches
+    before = kernels.launches["gather_f64"]
+    y = op(x)
+    assert kernels.launches["gather_f64"] == before + 1
+    assert _rel(y, want) <= TOL[torch.float64]

@@ -25,6 +25,15 @@ from rocalution_tpu_torch.interop import csr_from_numpy, wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import _build
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port builds on the card by default; these tests ask for the CPU."""
+    before = rt.config.default_device()
+    rt.set_default_device("cpu")
+    yield
+    rt.set_default_device(before)
+
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
     "lap3d_12": lambda m, dt: m.laplacian_3d(12, dtype=dt),

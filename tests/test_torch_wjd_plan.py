@@ -17,6 +17,15 @@ from rocalution_tpu.formats.wjd import csr_to_wjd_plan as jax_plan
 from rocalution_tpu_torch.formats.wjd import csr_to_wjd_plan as torch_plan
 from rocalution_tpu_torch.formats.wjd import from_csr
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port builds on the card by default; these tests ask for the CPU."""
+    before = rt.config.default_device()
+    rt.set_default_device("cpu")
+    yield
+    rt.set_default_device(before)
+
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
     "lap3d_12": lambda m, dt: m.laplacian_3d(12, dtype=dt),
@@ -89,6 +98,30 @@ def test_plan_arrays_equal_with_spill(name, dtype):
                   split_dia=False)
     pt = torch_plan(d, i, p, Aj.shape, max_slots=2, split_dia=False)
     assert len(pt["spill_row"]) > 0
+    _assert_plans_equal(pj, pt)
+
+
+@pytest.mark.parametrize("kernel_mode", ["roll", "gather"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_arrays_equal_in_the_windowed_regime(dtype, kernel_mode,
+                                                  monkeypatch):
+    """With the x budget set small, both planners size their groups for the
+    windowed kernels: group, Tp, win_base and win_rows must be equal there
+    too, not only in the resident regime."""
+    import rocalution_tpu.formats.wjd as jax_wjd
+    import rocalution_tpu_torch.formats.wjd as torch_wjd
+
+    Aj, _ = _pair("lap3d_12", dtype)
+    d, i, p = Aj.numpy_triplet()
+    kw = dict(kernel_mode=kernel_mode, split_dia=False)
+    resident = torch_plan(d, i, p, Aj.shape, **kw)
+    monkeypatch.setattr(jax_wjd, "X_VMEM_BUDGET", 1024)
+    monkeypatch.setattr(torch_wjd, "X_VMEM_BUDGET", 1024)
+    pj = jax_plan(d, i, p, Aj.shape, cache=False, **kw)
+    pt = torch_plan(d, i, p, Aj.shape, **kw)
+    assert pt["group"] > resident["group"]
+    assert pt["win_base"] is not None and pt["win_rows"] > 0
+    assert pt["data"].shape[0] == pt["group"] * len(pt["win_base"])
     _assert_plans_equal(pj, pt)
 
 

@@ -1,0 +1,158 @@
+"""Port parity: the windowed regime of the WJD SpMV.
+
+Above `X_VMEM_BUDGET` bytes of padded x the JAX package runs kernels that
+read x through per-step windows (`win_base`, `win_rows`); the port keeps
+that rule (formats/wjd.py:`windowed`) and has windowed kernels and a
+windowed plain version. Here, on the CPU, the plain version
+`slots_plain_windowed` is held bit for bit against the direct
+`slots_plain` (the same loads, addressed relative to the window) and the
+whole apply against the JAX `wjd_reference` (f64 rtol 1e-13, f32 rtol 2e-5:
+sums in another order). The regime is reached on small operators by
+setting the budget small, as tests/test_wjd.py does. The CUDA kernels
+themselves are checked by tests/test_torch_kernels.py, which needs a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rocalution_tpu as jrt
+import rocalution_tpu_torch as rt
+import rocalution_tpu_torch.formats.wjd as wjd_mod
+from rocalution_tpu.formats.wjd import from_csr as jax_from_csr
+from rocalution_tpu.ops.pallas.spmv_wjd import wjd_reference as jax_reference
+from rocalution_tpu_torch.formats.wjd import (_plan_to_wjd, csr_to_wjd_plan,
+                                              from_csr, windowed)
+from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+
+GENERATORS = {
+    "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
+    "lap3d_12": lambda m, dt: m.laplacian_3d(12, dtype=dt),
+    "randband_3000": lambda m, dt: m.random_banded_spd(
+        3000, bandwidth=512, dtype=dt),
+}
+RTOL = {np.float64: 1e-13, np.float32: 2e-5}
+TORCH_DT = {np.float64: torch.float64, np.float32: torch.float32}
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port builds on the card by default; these tests ask for the CPU."""
+    before = rt.config.default_device()
+    rt.set_default_device("cpu")
+    yield
+    rt.set_default_device(before)
+
+
+@pytest.fixture
+def small_budget(monkeypatch):
+    """Force the windowed regime on small operators: the planner sizes its
+    groups, and `windowed` picks the kernel, by this constant."""
+    monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1024)
+    _one_tile_steps(monkeypatch)
+
+
+def _one_tile_steps(monkeypatch):
+    """One tile per grid step, so that operators of two or three tiles have
+    as many windows (the planner's own groups of 8 to 64 tiles would give
+    them one). The product does not depend on the grouping."""
+    monkeypatch.setattr(wjd_mod, "_auto_group", lambda K: 1)
+    monkeypatch.setattr(wjd_mod, "_auto_group_windowed", lambda K: 1)
+
+
+def _x(n, dtype, seed=7):
+    return np.random.default_rng(seed).standard_normal(n).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_windowed_plain_equals_direct_and_jax(name, dtype, small_budget):
+    Aj, At = GENERATORS[name](jrt, dtype), GENERATORS[name](rt, dtype)
+    # split_dia=False: with the split a pure f32 stencil has no slots left
+    W = from_csr(At, split_dia=False)
+    assert W.win_base is not None and W.win_rows > 0
+    assert W.group == 1 and len(W.win_base) == -(-At.shape[0] // 1024)
+    x = _x(At.shape[1], dtype)
+    xp = kernels.pad_x(W, torch.from_numpy(x))
+    y_win = kernels.slots_plain_windowed(W, xp)
+    assert torch.equal(y_win, kernels.slots_plain(W, xp))
+    # the whole apply, through the dispatch where the regime allows it
+    Wj = jax_from_csr(Aj, cache=False, split_dia=False)
+    want = np.asarray(jax_reference(Wj, jnp.asarray(x)))
+    got = kernels.wjd_spmv(W, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL[dtype],
+                               atol=RTOL[dtype] * np.abs(want).max())
+
+
+CASES = [  # name, dtype, windowed under a small budget?
+    ("lap3d_12", np.float64, True),        # roll f64: _kernel_roll_ff_hbm
+    ("lap3d_12", np.float32, True),        # roll f32: _kernel_roll_hbm
+    ("randband_3000", np.float32, True),   # gather f32: _kernel_hbm
+    ("randband_3000", np.float64, False),  # gather f64: no windowed kernel
+]
+
+
+@pytest.mark.parametrize("name,dtype,want", CASES)
+def test_windowed_dispatch(name, dtype, want, monkeypatch):
+    At = GENERATORS[name](rt, dtype)
+    W_resident = from_csr(At, split_dia=False)
+    assert not windowed(W_resident, TORCH_DT[dtype])   # 12 MiB: resident
+    monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1024)
+    _one_tile_steps(monkeypatch)
+    W = from_csr(At, split_dia=False)
+    assert windowed(W, TORCH_DT[dtype]) is want
+    calls = []
+    for fn in ("slots_plain", "slots_plain_windowed"):
+        monkeypatch.setattr(kernels, fn, lambda A, xp, fn=fn, real=getattr(
+            kernels, fn): calls.append(fn) or real(A, xp))
+    x = torch.from_numpy(_x(At.shape[1], dtype))
+    y = kernels.wjd_spmv(W, x)
+    assert calls == ["slots_plain_windowed" if want else "slots_plain"]
+    torch.testing.assert_close(y, kernels.wjd_reference(W, x),
+                               rtol=RTOL[dtype], atol=RTOL[dtype])
+    assert set(calls[1:]) == {"slots_plain"}       # the reference is direct
+
+
+def test_windowed_needs_windows():
+    """A plan without win_base (no slots) is never in the windowed regime."""
+    At = rt.laplacian_2d(10, dtype=np.float32)
+    W = from_csr(At)                       # all diagonals split off to DIA
+    assert W.win_base is None
+    assert not windowed(W, torch.float32)
+
+
+@pytest.mark.parametrize("name", ["lap3d_12", "randband_3000"])
+def test_plan_that_breaks_a_window_is_refused(name, small_budget):
+    At = GENERATORS[name](rt, np.float32)
+    plan = csr_to_wjd_plan(*At.numpy_triplet(), At.shape, split_dia=False)
+    assert len(plan["win_base"]) > 1
+    _plan_to_wjd(plan, device="cpu")          # the planner's own plan fits
+    # a slot whose base row lies below its step's window
+    low = dict(plan, win_base=plan["win_base"].copy())
+    low["win_base"][1] += 1
+    with pytest.raises(ValueError, match="step window"):
+        _plan_to_wjd(low, device="cpu")
+    # a slot whose load rows pass the end of its step's window (the
+    # planner leaves 8 to 15 rows of slack)
+    short = dict(plan, win_rows=plan["win_rows"] - 16)
+    with pytest.raises(ValueError, match="step window"):
+        _plan_to_wjd(short, device="cpu")
+    # a last window that passes the end of padded x
+    long = dict(plan, win_rows=plan["xp_len"] // 128 + 8)
+    with pytest.raises(ValueError, match="xp_len"):
+        _plan_to_wjd(long, device="cpu")
+    # win_base must have one entry per step
+    with pytest.raises(ValueError, match="win_base"):
+        _plan_to_wjd(dict(plan, group=plan["group"] * 2 + 1), device="cpu")
+
+
+def test_windowed_plain_raises_outside_its_window(small_budget):
+    """The windowed plain version reads x only through the window."""
+    import dataclasses
+
+    W = from_csr(rt.laplacian_3d(12), split_dia=False)
+    xp = torch.zeros(W.xp_len, dtype=torch.float64)
+    tight = dataclasses.replace(W, win_rows=8)
+    with pytest.raises(IndexError):
+        kernels.slots_plain_windowed(tight, xp)
