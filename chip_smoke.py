@@ -8,7 +8,8 @@ then drives the main paths through the public entry points and checks that
 each went through its kernels:
 
   A-B  the card, the toolchain, the build (one nvcc per source, together)
-  C    the four direct single-RHS kernels at 1M rows
+  C    the four direct single-RHS kernels at 1M rows (gather mode on the
+       compact slice form, with its padding and the seconds it took)
   D-F  CG + Jacobi at 1M rows (f64 and f32, roll and gather plans)
   G    profile of the 1M-row f64 CG loop (host clock against
        torch.profiler's device time) and the host cost of one apply
@@ -18,15 +19,23 @@ each went through its kernels:
   J    ELL, HYB and BCSR operands routed through a WJD plan; COO, MCSR and
        DENSE plain applies
 
-Each kernel row carries its time, the plain version's, the bytes bound
-(`bound_ms`) and the time of the one PyTorch call that computes the same
-product (`library_ms`: torch.sparse_csr_tensor @ x, which the port never
-calls). Each phase prints one line; any failure raises, so the exit code
+The gather-mode kernels of C and H read the plan's row-compacted slice form;
+they are held against the plain version over that form and against the
+padded slot product over the plan's planes.
+
+Each kernel row carries its time, the plain version's, `bound_ms` (the least
+time the card could take for the product, whatever layout serves it: the
+operator's values, x and y once, or its flops), `own_bytes_ms` (the bytes of
+the layout the kernel streams, over the same rate) and the time of the one
+PyTorch call that computes the same product (`library_ms`:
+torch.sparse_csr_tensor @ x, which the port never calls). Each phase prints
+one line; any failure raises, so the exit code
 is non-zero. Without a CUDA device it fails at once. The last three lines
 are the card as nvidia-smi reports it, the per-kernel JSON, and the result
 JSON.
 """
 
+import dataclasses
 import importlib.util
 import json
 import shutil
@@ -148,18 +157,64 @@ def rel_err(got, want, tag, tol):
     return max_abs, rel
 
 
-def bound(W, kernels, cols=1):
-    """(ms, "bytes" | "operations"): the least time the card could take
-    for one slot product on `cols` columns. Bytes: slot values (+ uloc),
-    brow and diag_u, padded x and y, each once, over the HBM rate;
-    operations: 2 flops per slot element and column over the peak rate."""
-    Tp, K = W.brow.shape
-    isz = W.data.element_size()
-    nbytes = (kernels.slot_bytes(W) + 2 * 4 * Tp * K
-              + (W.xp_len + Tp * 1024) * isz * cols)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 2 * Tp * K * 1024 * cols / PEAK_FLOPS[W.data.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bounds(W, kernels, cols=1, compact=False):
+    """{"bound_ms", "bound_by", "own_bytes_ms"} of one slot product on
+    `cols` columns. The bound is the product's, whatever layout serves it:
+    the values of the nonzeros the slots hold, x and y, each once, over the
+    HBM rate, or 2 flops per nonzero and column over the peak rate,
+    whichever is larger (indices are a layout's choice and are left out).
+    own_bytes_ms: the bytes of the layout the kernel streams (the slot
+    planes with brow and diag_u, or the compact slice form; padded x; y),
+    over the HBM rate."""
+    isz = W.dtype.itemsize
+    n, m = W.shape
+    nnz = W.nnz - W.spill_row.numel()
+    t_bytes = (nnz + (n + m) * cols) * isz / PEAK_BYTES * 1e3
+    t_ops = 2 * nnz * cols / PEAK_FLOPS[W.dtype] * 1e3
+    own = (kernels.slot_bytes(W, compact)
+           + (W.xp_len + W.brow.shape[0] * 1024) * isz * cols)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "own_bytes_ms": own / PEAK_BYTES * 1e3}
+
+
+def bounds_text(b):
+    return (f"bound {b['bound_ms'] * 1e3:.1f} us ({b['bound_by']} of the "
+            f"product), own bytes {b['own_bytes_ms'] * 1e3:.1f} us")
+
+
+def with_planes(rt, A, attach_kw):
+    """A gather-mode plan on the card is served from its compact form and
+    carries no slot planes. Plan A once more on the host and return the
+    attached plan with the padded planes beside its compact form, so that
+    the padded slot product can be computed on the card; the same plan
+    with the rows of each tile ordered by length before compacting, for
+    timing only (its offsets belong to the rows' old places, so its
+    product is not A's): what the padding that is left costs; the seconds
+    the plan took and the seconds compacting took."""
+    from rocalution_tpu_torch.formats.wjd import (compact_slices,
+                                                  csr_to_wjd_plan)
+
+    def on_card(arrays):
+        return {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+
+    t0 = time.perf_counter()
+    plan = csr_to_wjd_plan(*A.numpy_triplet(), A.shape, **attach_kw)
+    t1 = time.perf_counter()
+    compact_slices(plan)
+    t2 = time.perf_counter()
+    W = A._wjd_cache
+    W_pad = dataclasses.replace(W, **on_card(
+        {"data": plan["data"], "uloc": plan["uloc"]}))
+    Tp, K = plan["brow"].shape
+    data = plan["data"].reshape(Tp, K, 1024)
+    order = np.argsort(-(data != 0).sum(axis=1), axis=1,
+                       kind="stable")[:, None, :]
+    W_ordered = dataclasses.replace(W, **on_card(compact_slices(dict(
+        plan, data=np.take_along_axis(data, order, 2),
+        uloc=np.take_along_axis(plan["uloc"].reshape(Tp, K, 1024), order,
+                                2)))))
+    return W_pad, W_ordered, t1 - t0, t2 - t1
 
 
 def library_ms(A, x):
@@ -206,37 +261,68 @@ def phase_b(kernels):
 
 
 def phase_c(rt, kernels, ops):
-    """Direct kernel against plain version on the card, per entry point."""
-    results = {}
+    """Direct kernel against plain version on the card, per entry point.
+    Roll mode: the slot product over the planes. Gather mode: the product
+    over the compact slice form, against its plain version and against the
+    padded slot product. Returns the rows and, per gather key, what
+    `with_planes` built on the card (phase H uses it again)."""
+    results, padded = {}, {}
     for key, (A, attach_kw) in ops.items():
         t0 = time.perf_counter()
         rt.attach_wjd(A, **attach_kw)
         W = A._wjd_cache
-        plan_s = time.perf_counter() - t0
+        attach_s = time.perf_counter() - t0
         if not key.startswith(W.kernel_mode):
             raise RuntimeError(f"{key}: plan chose {W.kernel_mode} mode")
-        tol = TOL[W.data.dtype]
-        x = random_x(rt, A, W.data.dtype)
-        max_abs, rel = rel_err(kernels.wjd_spmv(W, x),
-                               kernels.wjd_reference(W, x), key, tol)
+        gather = W.kernel_mode == "gather"
+        if gather and W.data is not None:
+            raise RuntimeError(f"{key}: the plan keeps its slot planes on "
+                               "the card")
+        tol = TOL[W.dtype]
+        x = random_x(rt, A, W.dtype)
         xp = kernels.pad_x(W, x)
+        plain = kernels.slots_plain_compact if gather else kernels.slots_plain
+        y = kernels.slots_kernel(W, xp)
+        max_abs, rel = rel_err(y, plain(W, xp), key, tol)
+        rel_err(kernels.wjd_spmv(W, x), kernels.wjd_reference(W, x),
+                f"{key} full op", tol)
+        extra = ""
+        if gather:
+            W_pad, W_ordered, plan_s, compact_s = with_planes(rt, A,
+                                                              attach_kw)
+            _, rel_p = rel_err(y, kernels.slots_plain(W_pad, xp),
+                               f"{key} vs padded slot product", tol)
+            rel_err(kernels.wjd_spmv(W, x), kernels.wjd_reference(W_pad, x),
+                    f"{key} full op vs padded", tol)
+            padded[key] = (W_pad, W_ordered)
+            o_ms = median_ms(lambda: kernels.slots_kernel(W_ordered, xp))
+            extra = (f" ({plan_s:.1f} s planning, {compact_s:.1f} s "
+                     f"compacting when done again) | compact form "
+                     f"{W.cval.numel()} elements, padding "
+                     f"{W.compact_padding_ratio:.3f}x, "
+                     f"{W.coff.element_size()}-byte offsets | vs padded slot "
+                     f"product {rel_p:.3e} | timing only, rows of a tile "
+                     f"ordered by length: padding "
+                     f"{W_ordered.compact_padding_ratio:.3f}x, kernel "
+                     f"{o_ms * 1e3:.1f} us")
+        del y
         k_ms = median_ms(lambda: kernels.slots_kernel(W, xp))
-        p_ms = median_ms(lambda: kernels.slots_plain(W, xp))
+        p_ms = median_ms(lambda: plain(W, xp))
         op_ms = median_ms(lambda: kernels.wjd_spmv(W, x))
         ref_ms = median_ms(lambda: kernels.wjd_reference(W, x))
         lib_ms = library_ms(A, x)
-        b_ms, b_by = bound(W, kernels)
-        ref_gbs = (W.data.element_size() + 4) * A.nnz / (op_ms * 1e-3) / 1e9
-        say("C", f"{key}: {plan_line(A, W)} plan {plan_s:.1f} s | "
-            f"max|dy|/max|y|={rel:.3e} (tol {tol:g}) | kernel {k_ms * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
-            f"sparse-CSR library call {lib_ms * 1e3:.1f} us | full op "
-            f"{op_ms * 1e3:.1f} us vs plain {ref_ms * 1e3:.1f} us | "
-            f"{ref_gbs:.0f} GB/s by (sizeof(T)+4)*nnz")
+        b = bounds(W, kernels, compact=gather)
+        ref_gbs = (W.dtype.itemsize + 4) * A.nnz / (op_ms * 1e-3) / 1e9
+        say("C", f"{key}: {plan_line(A, W)} attach {attach_s:.1f} s{extra} | "
+            f"max|dy|/max|y|={rel:.3e} (tol {tol:g}) | kernel "
+            f"{k_ms * 1e3:.1f} us, {bounds_text(b)}, plain "
+            f"{p_ms * 1e3:.1f} us, sparse-CSR library call "
+            f"{lib_ms * 1e3:.1f} us | full op {op_ms * 1e3:.1f} us vs plain "
+            f"{ref_ms * 1e3:.1f} us | {ref_gbs:.0f} GB/s by "
+            f"(sizeof(T)+4)*nnz")
         results[key] = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms}
-    return results
+                        "library_ms": lib_ms, **b}
+    return results, padded
 
 
 def solve(rt, A, b, **kw):
@@ -372,7 +458,7 @@ def phase_g_host(rt, kernels, A, A_plain):
     of x, a ctypes call) against the plain CSR apply (`index_select`,
     multiply, `index_add_`), HOST_CALLS calls each, in turns."""
     W = A._wjd_cache
-    x = random_x(rt, A, W.data.dtype)
+    x = random_x(rt, A, W.dtype)
     cells = []
     for _ in range(2):
         cells.append((host_us(lambda v: kernels.wjd_spmv(W, v), x),
@@ -382,47 +468,63 @@ def phase_g_host(rt, kernels, A, A_plain):
                     f"{p[0]:.1f} ({p[1]:.1f})" for w, p in cells))
 
 
-def phase_h(rt, kernels, totals, ops, single):
+def phase_h(rt, kernels, totals, ops, single, padded):
     """Blocked right-hand sides: the SpMM kernel against its plain version
-    on 16 columns, in both layouts of padded X, then the entry point
-    rt.spmv(A, X) on 16 and 20 columns against the plain version and
-    against 16 single-RHS applies."""
+    on 16 columns, then the entry point rt.spmv(A, X) on 16 and 20 columns
+    against the plain version and against 16 single-RHS applies. Roll mode
+    is timed in both layouts of padded X; gather mode (the compact slice
+    form, row-major X) is held against the padded slot product too."""
     results = {}
     for key, (A, _) in ops.items():
         W = A._wjd_cache
-        tol = TOL[W.data.dtype]
-        X = {k: random_x(rt, A, W.data.dtype, k) for k in MRHS_COLS}
+        gather = W.kernel_mode == "gather"
+        tol = TOL[W.dtype]
+        X = {k: random_x(rt, A, W.dtype, k) for k in MRHS_COLS}
         xp = kernels.pad_x(W, X[16], 16)             # (xp_len, 16) row-major
-        xpl = xp.t().contiguous()                    # (16, xp_len) planes
-        y_p = kernels.slots_plain_mrhs(W, xp)
-        max_abs, rel = rel_err(kernels.slots_kernel_mrhs(W, xp), y_p,
-                               f"spmm_{key}", tol)
-        rel_err(kernels.slots_kernel_mrhs(W, xpl, row_major=False).t(), y_p,
-                f"spmm_{key} planes", tol)
-        del y_p
+        plain = (kernels.slots_plain_compact_mrhs if gather
+                 else kernels.slots_plain_mrhs)
+        y_k = kernels.slots_kernel_mrhs(W, xp)
+        max_abs, rel = rel_err(y_k, plain(W, xp), f"spmm_{key}", tol)
         k_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W, xp))
-        pl_ms = median_ms(lambda: kernels.slots_kernel_mrhs(
-            W, xpl, row_major=False))
-        p_ms = median_ms(lambda: kernels.slots_plain_mrhs(W, xp))
+        p_ms = median_ms(lambda: plain(W, xp))
         lib_ms = library_ms(A, X[16])
-        # pad, launch and trim, as the wrapper does it, in each layout: the
-        # planes pay two transposing copies around the launch
         n, m = A.shape
+        if gather:
+            W_pad, W_ordered = padded[key]
+            _, rel_p = rel_err(y_k, kernels.slots_plain_mrhs(W_pad, xp),
+                               f"spmm_{key} vs padded slot product", tol)
+            o_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W_ordered, xp))
+            layouts = (f"vs padded slot product {rel_p:.3e}; timing only, "
+                       f"rows of a tile ordered by length: {o_ms * 1e3:.1f} "
+                       "us")
+        else:
+            # pad, launch and trim, as the wrapper does it, in each layout:
+            # the planes pay two transposing copies around the launch
+            xpl = xp.t().contiguous()                # (16, xp_len) planes
+            rel_err(kernels.slots_kernel_mrhs(W, xpl, row_major=False).t(),
+                    y_k, f"spmm_{key} planes", tol)
+            pl_ms = median_ms(lambda: kernels.slots_kernel_mrhs(
+                W, xpl, row_major=False))
 
-        def padded_row_major():
-            return kernels.slots_kernel_mrhs(W, kernels.pad_x(W, X[16]))[:n]
+            def padded_row_major():
+                return kernels.slots_kernel_mrhs(
+                    W, kernels.pad_x(W, X[16]))[:n]
 
-        def padded_planes():
-            xq = X[16].new_zeros((16, W.xp_len))
-            xq[:, W.pad_lo:W.pad_lo + m] = X[16].t()
-            return kernels.slots_kernel_mrhs(
-                W, xq, row_major=False)[:, :n].t().contiguous()
+            def padded_planes():
+                xq = X[16].new_zeros((16, W.xp_len))
+                xq[:, W.pad_lo:W.pad_lo + m] = X[16].t()
+                return kernels.slots_kernel_mrhs(
+                    W, xq, row_major=False)[:, :n].t().contiguous()
 
-        rel_err(padded_planes(), padded_row_major(), f"spmm_{key} layouts",
-                tol)
-        rm_all_ms = median_ms(padded_row_major)
-        pl_all_ms = median_ms(padded_planes)
-        b_ms, b_by = bound(W, kernels, 16)
+            rel_err(padded_planes(), padded_row_major(),
+                    f"spmm_{key} layouts", tol)
+            layouts = (f"{pl_ms * 1e3:.1f} us with X in planes; with padding "
+                       f"and trimming {median_ms(padded_row_major) * 1e3:.1f}"
+                       f" us row-major against "
+                       f"{median_ms(padded_planes) * 1e3:.1f} us planes")
+            del xpl
+        del y_k
+        b = bounds(W, kernels, 16, compact=gather)
         with Counted(kernels, totals) as c:
             Y = {k: rt.spmv(A, X[k]) for k in MRHS_COLS}
         if c.got[f"spmm_{key}"] != 3:                # 1 chunk + 2 chunks
@@ -433,6 +535,9 @@ def phase_h(rt, kernels, totals, ops, single):
                 raise RuntimeError(f"H {key}: Y has shape {Y[k].shape}")
             rel_err(Y[k], kernels.wjd_reference(W, X[k]), f"H {key} k={k}",
                     tol)
+            if gather:
+                rel_err(Y[k], kernels.wjd_reference(W_pad, X[k]),
+                        f"H {key} k={k} vs padded slot product", tol)
         singles = torch.stack([kernels.wjd_spmv(W, X[16][:, j].contiguous())
                                for j in range(16)], dim=1)
         _, rel_s = rel_err(Y[16], singles, f"H {key} vs single applies", tol)
@@ -442,16 +547,13 @@ def phase_h(rt, kernels, totals, ops, single):
             f"kernel {k_ms * 1e3:.1f} us with X row-major (as rt.spmv "
             f"lays it out; {k_ms * 1e3 / 16:.1f} us/column against "
             f"{single[key]['ms'] * 1e3:.1f} us for the single-RHS kernel), "
-            f"{pl_ms * 1e3:.1f} us with X in planes; with padding and "
-            f"trimming {rm_all_ms * 1e3:.1f} us row-major against "
-            f"{pl_all_ms * 1e3:.1f} us planes | bound "
-            f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
+            f"{layouts} | {bounds_text(b)}, plain {p_ms * 1e3:.1f} us, "
             f"sparse-CSR library call "
             f"{lib_ms * 1e3:.1f} us | rt.spmv(A, X) {op_ms * 1e3:.1f} us; "
             f"k=20 agrees too; {c.got[f'spmm_{key}']} launches")
         results[f"spmm_{key}"] = {
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "library_ms": lib_ms, **b}
     return results
 
 
@@ -476,8 +578,8 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
     W = getattr(A, "_wjd_cache", None)
     if W is None:
         raise RuntimeError(f"I {tag}: WJD did not attach")
-    if not (key == f"win_{W.kernel_mode}_{TAG[W.data.dtype]}"
-            and windowed(W, W.data.dtype)):
+    if not (key == f"win_{W.kernel_mode}_{TAG[W.dtype]}"
+            and windowed(W, W.dtype)):
         raise RuntimeError(f"I {tag}: plan ({W.kernel_mode}, xp_len="
                            f"{W.xp_len}) is not in the windowed regime")
     it, err = check_solve(f"I {tag}", x, info, 2, err_tol)
@@ -508,8 +610,8 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
         del A_plain, xp_
     say("I", line)
 
-    tol = TOL[W.data.dtype]
-    xv = random_x(rt, A, W.data.dtype)
+    tol = TOL[W.dtype]
+    xv = random_x(rt, A, W.dtype)
     xp = kernels.pad_x(W, xv)
     y_p = kernels.slots_plain_windowed(W, xp)
     max_abs, rel = rel_err(kernels.slots_kernel_windowed(W, xp), y_p, key,
@@ -522,16 +624,18 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
     k2_ms = median_ms(lambda: kernels.slots_kernel_windowed(W, xp))
     p_ms = median_ms(lambda: kernels.slots_plain_windowed(W, xp))
     lib_ms = library_ms(A, xv)
-    b_ms, b_by = bound(W, kernels)
+    b = bounds(W, kernels)
+    direct = ("direct kernel on the plan's compact form"
+              if W.kernel_mode == "gather"
+              else "direct kernel on the same plan")
     say("I", f"{key}: {plan_line(A, W)} steps="
         f"{W.win_base.numel()} | max|dy|/max|y|={rel:.3e} (tol {tol:g}) | "
         f"windowed kernel {k_ms * 1e3:.1f} us (again {k2_ms * 1e3:.1f}), "
-        f"direct kernel on the same plan {d_ms * 1e3:.1f} us | bound "
-        f"{b_ms * 1e3:.1f} us ({b_by}), plain {p_ms * 1e3:.1f} us, "
-        f"sparse-CSR library call "
+        f"{direct} {d_ms * 1e3:.1f} us | {bounds_text(b)}, plain "
+        f"{p_ms * 1e3:.1f} us, sparse-CSR library call "
         f"{lib_ms * 1e3:.1f} us")
     return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}}
+                  "library_ms": lib_ms, **b}}
 
 
 def phase_j(rt, kernels, totals, lap, rand):
@@ -609,7 +713,7 @@ def main():
         "roll_f32": (lap32, {"split_dia": False}),
         "gather_f32": (rand32, {}),
     }
-    measured = phase_c(rt, kernels, ops)
+    measured, padded = phase_c(rt, kernels, ops)
 
     # main paths: each runs with the counts set to 0 just before it and
     # read just after; `totals` adds them up per entry point
@@ -627,9 +731,9 @@ def main():
     phase_g_host(rt, kernels, A, A_plain)
     del A_plain, b
 
-    measured.update(phase_h(rt, kernels, totals, ops, measured))
+    measured.update(phase_h(rt, kernels, totals, ops, measured, padded))
     phase_j(rt, kernels, totals, lap64, rand64)
-    del ops, lap64, lap32, rand64, rand32, A
+    del ops, padded, lap64, lap32, rand64, rand32, A
     torch.cuda.empty_cache()
 
     measured.update(phase_i(

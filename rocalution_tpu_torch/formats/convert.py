@@ -23,7 +23,7 @@ from .dia import DIA
 from .ell import ELL
 from .hyb import HYB
 from .mcsr import MCSR
-from .wjd import TILE, WJD, from_csr as _wjd_from_csr
+from .wjd import TILE, WJD, compact_entries, from_csr as _wjd_from_csr
 
 FORMATS = {
     "CSR": CSR,
@@ -105,22 +105,29 @@ def to_csr(mat) -> CSR:
     if isinstance(mat, DENSE):
         return CSR.from_dense(get_host(mat, "data"), device=dev)
     if isinstance(mat, WJD):
-        # rebuild COO from the slot planes (explicit zeros are dropped, as
-        # in every padded-format round trip)
-        val = get_host(mat, "data")
-        brow = get_host(mat, "brow").astype(np.int64)
-        tt, kk, ss, ll = np.nonzero(val)
-        if mat.uloc is None:                              # roll mode
-            u = np.maximum(get_host(mat, "diag_u"), 0).astype(
-                np.int64)[tt, kk]
+        # rebuild COO from the slot planes, or from the compact slice form
+        # where a gather-mode plan carries no planes (explicit zeros are
+        # dropped, as in every padded-format round trip)
+        if mat.data is None:
+            rows, xoff, slot_vals = compact_entries(*(
+                get_host(mat, f) for f in ("cval", "coff", "slice_ptr",
+                                           "xbase")))
+            cols = xoff - mat.pad_lo
         else:
-            u = get_host(mat, "uloc")[tt, kk, ss, ll].astype(np.int64)
-        rows = tt * TILE + ss * 128 + ll
-        cols = brow[tt, kk] * 128 - mat.pad_lo + ss * 128 + ll + u
+            val = get_host(mat, "data")
+            brow = get_host(mat, "brow").astype(np.int64)
+            tt, kk, ss, ll = np.nonzero(val)
+            if mat.uloc is None:                          # roll mode
+                u = np.maximum(get_host(mat, "diag_u"), 0).astype(
+                    np.int64)[tt, kk]
+            else:
+                u = get_host(mat, "uloc")[tt, kk, ss, ll].astype(np.int64)
+            rows = tt * TILE + ss * 128 + ll
+            cols = brow[tt, kk] * 128 - mat.pad_lo + ss * 128 + ll + u
+            slot_vals = val[tt, kk, ss, ll]
         rows = np.concatenate([rows, get_host(mat, "spill_row")])
         cols = np.concatenate([cols, get_host(mat, "spill_col")])
-        vals = np.concatenate([val[tt, kk, ss, ll],
-                               get_host(mat, "spill_val")])
+        vals = np.concatenate([slot_vals, get_host(mat, "spill_val")])
         if mat.dia_data is not None:     # the split-off dense diagonals
             dia = to_csr(DIA(data=mat.dia_data, offsets=mat.dia_offsets,
                              shape=mat.shape))

@@ -21,6 +21,28 @@ values are stored natively as one f64 plane, not as the f32 hi/lo pair
 (which holds 48 of the 53 significand bits) — Hopper has IEEE fp64, and
 the byte count is the same.
 
+A slot exists for every (tile, window, rank) that any of a tile's 1024
+rows occupies, so a **gather-mode** plan of a scattered operator is mostly
+padding (5.6x at 15 nonzeros a row). A TPU's (8, 128) vector unit wants
+those dense planes; a warp of 32 threads does not. So a gather-mode plan
+also takes a **row-compacted slice form** (`compact_slices`), and that is
+what the direct gather kernels read on the card:
+
+* a slice is 32 consecutive rows (one warp), 32 slices a tile;
+* each row's real entries are packed to ranks 0..len-1 in ascending slot
+  order k, so a row sums the same terms in the same order as the slot
+  product, less the padding's ``+ 0*x`` terms;
+* a slice is as wide as its longest row and lies rank-major: element
+  (rank j, lane) at ``slice_ptr[slice] + j*32 + lane``; short rows are
+  padded with value 0 and offset 0;
+* an entry's column is its offset into padded x relative to the slice's
+  base ``xbase[slice]``, as uint16 where every slice spans fewer than
+  65,536 elements of x, else as int32 for the whole plan.
+
+The padded ``data`` / ``uloc`` planes of a gather-mode plan stay on the
+host only (None on the WJD) unless the WJD lives on the CPU or the plan is
+in the windowed regime in f32, whose kernel reads them.
+
 The planner's cost constants were fitted on a TPU v5e and are kept for
 plan parity; refitting them on the H100 is later, measured work.
 """
@@ -36,6 +58,7 @@ import torch
 from .base import MatrixBase, to_device
 
 TILE = 1024          # rows per tile
+SLICE = 32           # rows per slice of the compact form: one warp
 
 
 def _load_rows(nj: int) -> int:
@@ -47,7 +70,9 @@ def _load_rows(nj: int) -> int:
 class WJD(MatrixBase):
     """Windowed jagged-diagonal matrix (see module docstring)."""
 
-    data: torch.Tensor       # (Tp, K, 8, 128) slot values, f32 or f64
+    # (Tp, K, 8, 128) slot values, f32 or f64; None where a gather-mode
+    # plan on the card is served from its compact form alone
+    data: Optional[torch.Tensor]
     brow: torch.Tensor       # (Tp, K) int32 window base row into padded x
     diag_u: torch.Tensor     # (Tp, K) int32: constant u of diagonal slots, -1 else
     spill_row: torch.Tensor  # (nspill,) int32 COO spill
@@ -70,11 +95,30 @@ class WJD(MatrixBase):
     group: int = 8                    # tiles per TPU grid step
     wlog: int = 8                     # log2 window width
     win_rows: int = 0                 # x rows per step window
+    # row-compacted slice form of a gather-mode plan (`compact_slices`)
+    cval: Optional[torch.Tensor] = None       # (total,) values
+    coff: Optional[torch.Tensor] = None       # (total,) uint16 | int32
+    slice_ptr: Optional[torch.Tensor] = None  # (Tp*32 + 1,) int64
+    xbase: Optional[torch.Tensor] = None      # (Tp*32,) int64
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (self.cval if self.data is None else self.data).dtype
+
+    @property
+    def device(self) -> torch.device:
+        return (self.cval if self.data is None else self.data).device
 
     @property
     def padding_ratio(self) -> float:
         Tp, K = self.brow.shape
         return Tp * K * TILE / max(self.nnz, 1)
+
+    @property
+    def compact_padding_ratio(self) -> float:
+        """Elements of the compact slice form over the entries held by
+        slots and spill (`padding_ratio`'s denominator)."""
+        return self.cval.numel() / max(self.nnz, 1)
 
 
 # per-slot kernel cost model (ns, v5e-measured): base + gathers; spilled
@@ -474,33 +518,127 @@ def _check_windows(plan: dict, reach) -> None:
             f"{int(wb.max()) + win_rows} pass xp_len={plan['xp_len']}")
 
 
+def compact_slices(plan: dict) -> dict:
+    """Row-compacted slice form of a gather-mode plan (module docstring),
+    from the plan's padded planes: numpy arrays ``cval``, ``coff``,
+    ``slice_ptr``, ``xbase``. The real entries are the nonzero slot values
+    (a stored zero adds nothing to a product and is dropped, as in
+    `to_csr`). Vectorised: one pass over the planes, then work per entry."""
+    brow = np.asarray(plan["brow"], np.int64)
+    Tp, K = brow.shape
+    data = np.asarray(plan["data"]).reshape(Tp, K, TILE)
+    occ = data != 0
+    # rank of an entry among its row's entries, in ascending slot order
+    upto = np.cumsum(occ, axis=1, dtype=np.uint8 if K < 256 else np.int32)
+    width = upto[:, -1, :].reshape(Tp * (TILE // SLICE), SLICE).max(axis=1)
+    slice_ptr = np.zeros(len(width) + 1, np.int64)
+    np.cumsum(width.astype(np.int64) * SLICE, out=slice_ptr[1:])
+    total = int(slice_ptr[-1])
+
+    e = np.flatnonzero(occ.reshape(-1))
+    tk, r = e >> 10, e & (TILE - 1)
+    row = (tk // K) * TILE + r
+    sl = row // SLICE
+    pos = slice_ptr[sl] + (upto.reshape(-1)[e].astype(np.int64) - 1) * SLICE \
+        + (r & (SLICE - 1))
+    del upto, occ
+    # offset into padded x: (brow + s)*128 + l + u, and s*128 + l = r
+    xoff = brow.reshape(-1)[tk] * 128 + r + np.asarray(
+        plan["uloc"]).reshape(-1)[e].astype(np.int64)
+
+    cval = np.zeros(total, data.dtype)
+    cval[pos] = data.reshape(-1)[e]
+    BIG = np.int64(1) << 62
+    off = np.full(total, BIG, np.int64)
+    off[pos] = xoff
+    xbase = np.zeros(len(width), np.int64)
+    full = width > 0
+    if total:
+        xbase[full] = np.minimum.reduceat(off, slice_ptr[:-1][full])
+    off -= np.repeat(xbase, width.astype(np.int64) * SLICE)
+    off[cval == 0] = 0                                 # padding of short rows
+    span = int(off.max(initial=0))
+    if span >= 1 << 31:
+        raise ValueError(f"bad WJD plan: a slice spans {span} elements of x")
+    return dict(cval=cval,
+                coff=off.astype(np.uint16 if span < 1 << 16 else np.int32),
+                slice_ptr=slice_ptr, xbase=xbase)
+
+
+def compact_entries(cval, coff, slice_ptr, xbase):
+    """(rows, offsets into padded x, values) of the real entries of a
+    compact slice form given as numpy arrays: element p of slice i belongs
+    to row i*32 + p % 32 (every slice starts at a multiple of 32)."""
+    p = np.flatnonzero(cval)
+    sl = np.searchsorted(slice_ptr, p, side="right") - 1
+    return (sl * SLICE + p % SLICE, xbase[sl] + coff[p].astype(np.int64),
+            cval[p])
+
+
+def _check_compact_reach(compact: dict, xp_len: int) -> None:
+    """Raise ValueError unless every load xbase[slice] + coff of the compact
+    form lies in [0, xp_len): the CUDA kernels read x without bounds
+    checks."""
+    ptr, xbase = compact["slice_ptr"], compact["xbase"]
+    if not len(compact["coff"]):
+        return
+    full = np.diff(ptr) > 0
+    off, starts = compact["coff"].astype(np.int64), ptr[:-1][full]
+    lowest = int((xbase[full] + np.minimum.reduceat(off, starts)).min())
+    deepest = int((xbase[full] + np.maximum.reduceat(off, starts)).max())
+    if lowest < 0 or deepest >= int(xp_len):
+        raise ValueError(f"bad WJD plan: compact loads reach x[{lowest}] .. "
+                         f"x[{deepest}], outside xp_len={xp_len}")
+
+
 def windowed(A: WJD, dtype: torch.dtype) -> bool:
     """Does an x of `dtype` take the windowed kernels on this plan? The JAX
     package's rule for which kernel runs: the padded x plane passes
     X_VMEM_BUDGET and the plan carries windows; gather mode has a windowed
     kernel in f32 only, so gather-mode f64 stays on the direct kernel."""
-    if A.win_base is None:
+    return _window_regime(A.win_base is not None, A.xp_len, A.kernel_mode,
+                          dtype.itemsize, dtype == torch.float32)
+
+
+def _window_regime(has_windows, xp_len, mode, itemsize, is_f32) -> bool:
+    if not has_windows or xp_len * itemsize <= X_VMEM_BUDGET:
         return False
-    if A.xp_len * dtype.itemsize <= X_VMEM_BUDGET:
-        return False
-    return A.kernel_mode == "roll" or dtype == torch.float32
+    return mode == "roll" or is_f32
 
 
 def _plan_to_wjd(plan: dict, device) -> WJD:
     """Materialize a host plan as a WJD on ``device`` (one upload per
     array), after checking that no slot load leaves padded x or, where
-    the plan has per-step windows, its step's window."""
+    the plan has per-step windows, its step's window. A gather-mode plan
+    is compacted here (`compact_slices`); its padded planes go along only
+    to the CPU or where the windowed f32 kernel will read them."""
     if np.asarray(plan["brow"]).size:
         reach = _slot_reach(plan)
         _check_x_reach(plan, reach)
         if plan.get("win_base") is not None:
             _check_windows(plan, reach)
+    skip = ()
+    if plan["kernel_mode"] == "gather":
+        compact = compact_slices(plan)
+        _check_compact_reach(compact, plan["xp_len"])
+        plan = {**plan, **compact}
+        vdt = np.asarray(plan["data"]).dtype
+        if torch.device(device).type != "cpu" and not _window_regime(
+                plan.get("win_base") is not None, int(plan["xp_len"]),
+                "gather", vdt.itemsize, vdt == np.float32):
+            skip = ("data", "uloc")
 
     def put(name, dt=None):
         a = plan.get(name)
-        return None if a is None else to_device(a, device, dt)
+        if a is None or name in skip:
+            return None
+        return to_device(a, device, dt)
 
     return WJD(
+        cval=put("cval"),
+        coff=put("coff"),
+        slice_ptr=put("slice_ptr", np.int64),
+        xbase=put("xbase", np.int64),
         data=put("data"),
         uloc=put("uloc"),
         brow=put("brow", np.int32),

@@ -1,15 +1,18 @@
 """WJD SpMV and SpMM: hand-written Hopper kernels, wrappers, plain versions.
 
 Counterpart of rocalution_tpu/ops/pallas/spmv_wjd.py. Its eight Pallas
-kernels are three templated CUDA kernels here:
+kernels are templated CUDA kernels in three sources here:
 
 * ``csrc/spmv_wjd.cu``: the direct single-RHS kernels (`_kernel`,
   `_kernel_roll`, `_kernel_ff`, `_kernel_roll_ff`), four C entry points;
-* ``csrc/spmv_wjd_win.cu``: the same product with x read through per-step
+  the two gather entry points read the plan's row-compacted slice form
+  (formats/wjd.py:`compact_slices`), the two roll ones its slot planes;
+* ``csrc/spmv_wjd_win.cu``: the slot product with x read through per-step
   windows (`_kernel_hbm`, `_kernel_roll_hbm`, `_kernel_roll_ff_hbm`), for
   plans in the windowed regime (formats/wjd.py:`windowed`);
 * ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
-  16 columns a launch.
+  16 columns a launch; gather mode on the compact form, roll mode on the
+  slot planes.
 
 See those files for the designs. The wrappers pad x, launch on the current
 stream, add the COO spill and the DIA part, and trim to n.
@@ -26,7 +29,7 @@ import ctypes
 import torch
 
 from ...formats.dia import dia_apply
-from ...formats.wjd import TILE, WJD, windowed
+from ...formats.wjd import SLICE, TILE, WJD, windowed
 from . import _build
 
 # Kernel launches per entry point, counted where the wrapper launches.
@@ -44,10 +47,11 @@ _MRHS_WIDTHS = (4, 8, 16)
 
 _DTYPE_TAG = {torch.float64: "f64", torch.float32: "f32"}
 _ULOC_DTYPES = (torch.uint8, torch.int16)
+_COFF_DTYPES = (torch.uint16, torch.int32)
 _P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# (library, prefix of the launch counters, argument types after the slot
-# operands) per family; the slot operands are data, brow, then diag_u
-# (roll) or uloc, uloc_bytes (gather)
+# (library, prefix of the launch counters, argument types after the plan's
+# operands) per family of slot kernels; the plan's operands are data, brow,
+# then diag_u (roll) or uloc, uloc_bytes (gather)
 _FAMILIES = {
     # xp, y, Tp, K, stream
     "spmv": ("spmv_wjd", "", [_P, _P, _I64, _INT, _P]),
@@ -58,6 +62,11 @@ _FAMILIES = {
     "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _INT, _INT, _I64, _P]),
 }
 _SLOT_ARGS = {"roll": [_P, _P, _P], "gather": [_P, _P, _P, _INT]}
+# the compact gather kernels: cval, coff, coff_bytes, slice_ptr, xbase, then
+# xp, y, nslices, stream (spmv) or xp, y, nslices, kc, stream (spmm)
+_COMPACT_ARGS = [_P, _P, _INT, _P, _P]
+_COMPACT_TAILS = {"spmv": ("spmv_wjd", "", [_P, _P, _I64, _P]),
+                  "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _P])}
 
 
 def build() -> None:
@@ -65,26 +74,42 @@ def build() -> None:
     _build.build_all()
 
 
-def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
-    """Call entry point wjd_<family>_<mode>_<tag> on the current stream of
-    xp's device; raise unless the launch succeeds; count it."""
-    lib, prefix, tail = _FAMILIES[family]
-    name = f"wjd_{family}_{A.kernel_mode}_{tag}"
+def _call(lib: str, name: str, argtypes, counter: str, xp: torch.Tensor,
+          *args):
+    """Call entry point `name` on the current stream of xp's device; raise
+    unless the launch succeeds; count it."""
     fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = _SLOT_ARGS[A.kernel_mode] + tail
+        fn.argtypes = argtypes
         fn.restype = _INT
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    launches[counter] += 1
+
+
+def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
+    """Launch slot kernel wjd_<family>_<mode>_<tag> on the plan's planes."""
+    lib, prefix, tail = _FAMILIES[family]
     if A.kernel_mode == "roll":
         slot = (A.data.data_ptr(), A.brow.data_ptr(), A.diag_u.data_ptr())
     else:
         slot = (A.data.data_ptr(), A.brow.data_ptr(), A.uloc.data_ptr(),
                 A.uloc.element_size())
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        rc = fn(*slot, *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[f"{prefix}{A.kernel_mode}_{tag}"] += 1
+    _call(lib, f"wjd_{family}_{A.kernel_mode}_{tag}",
+          _SLOT_ARGS[A.kernel_mode] + tail,
+          f"{prefix}{A.kernel_mode}_{tag}", xp, *slot, *args)
+
+
+def _launch_compact(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
+    """Launch gather kernel wjd_<family>_gather_<tag> on the compact form."""
+    lib, prefix, tail = _COMPACT_TAILS[family]
+    _call(lib, f"wjd_{family}_gather_{tag}", _COMPACT_ARGS + tail,
+          f"{prefix}gather_{tag}", xp, A.cval.data_ptr(), A.coff.data_ptr(),
+          A.coff.element_size(), A.slice_ptr.data_ptr(), A.xbase.data_ptr(),
+          *args)
 
 
 def pad_x(A: WJD, x: torch.Tensor, cols: int = 0) -> torch.Tensor:
@@ -135,50 +160,102 @@ def slots_plain_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     return (A.data * xp[wb[:, :, None, None] * 128 + local]).sum(dim=1)
 
 
-def slots_plain_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Plain blocked-RHS slot product: `slots_plain` per column of the
-    row-major (xp_len, kc) padded X; returns (Tp*1024, kc)."""
-    cols = [slots_plain(A, xp[:, j].contiguous()).reshape(-1)
+def _per_column(slots, A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain blocked-RHS product: `slots` per column of the row-major
+    (xp_len, kc) padded X; returns (Tp*1024, kc)."""
+    cols = [slots(A, xp[:, j].contiguous()).reshape(-1)
             for j in range(xp.shape[1])]
     return torch.stack(cols, dim=1)
 
 
-def _check_operands(A: WJD, xp: torch.Tensor) -> str:
-    """Raise unless the kernels take these operands; return the dtype tag."""
-    tag = _DTYPE_TAG.get(A.data.dtype)
-    if tag is None or xp.dtype != A.data.dtype:
+def slots_plain_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """`slots_plain` per column of padded X."""
+    return _per_column(slots_plain, A, xp)
+
+
+def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain product over the compact slice form of a gather-mode plan:
+    element p of slice i multiplies xp[xbase[i] + coff[p]] and adds to row
+    i*32 + p % 32 (every slice starts at a multiple of 32). Gather,
+    multiply, sum by row; returns (Tp, 8, 128)."""
+    nslices = A.xbase.numel()
+    sl = torch.repeat_interleave(
+        torch.arange(nslices, device=xp.device), A.slice_ptr.diff())
+    lane = torch.arange(A.cval.numel(), device=xp.device) % SLICE
+    prod = A.cval * xp[A.xbase[sl] + A.coff.long()]
+    y = xp.new_zeros(nslices * SLICE).index_add_(0, sl * SLICE + lane, prod)
+    return y.view(-1, 8, 128)
+
+
+def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """`slots_plain_compact` per column of padded X."""
+    return _per_column(slots_plain_compact, A, xp)
+
+
+def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
+    """Raise unless the kernels take these operands (the plan's slot
+    planes, or its compact slice form); return the dtype tag."""
+    tag = _DTYPE_TAG.get(A.dtype)
+    if tag is None or xp.dtype != A.dtype:
         raise TypeError(f"WJD kernel takes f32/f64 values with x of the same "
-                        f"dtype, got {A.data.dtype} and {xp.dtype}")
-    operands = [A.data, A.brow, A.diag_u, xp]
-    if A.kernel_mode == "gather":
-        if A.uloc is None or A.uloc.dtype not in _ULOC_DTYPES:
-            raise TypeError("gather-mode WJD needs a uint8/int16 uloc plane")
-        operands.append(A.uloc)
-    elif A.kernel_mode != "roll":
-        raise ValueError(f"unknown WJD kernel mode {A.kernel_mode!r}")
-    for t in operands:
+                        f"dtype, got {A.dtype} and {xp.dtype}")
+    if compact:
+        operands = [A.cval, A.coff, A.slice_ptr, A.xbase]
+        if A.kernel_mode != "gather" or any(t is None for t in operands):
+            raise ValueError("the compact kernels take a gather-mode WJD "
+                             "with its compact slice form")
+        if A.coff.dtype not in _COFF_DTYPES or A.cval.dtype != A.dtype:
+            raise TypeError("compact WJD offsets must be uint16/int32 and "
+                            "its values of the plan's dtype")
+        if (A.slice_ptr.dtype != torch.int64 or A.xbase.dtype != torch.int64):
+            raise TypeError("compact WJD slice_ptr/xbase must be int64")
+        Tp = A.brow.shape[0]
+        if (A.xbase.numel() != Tp * (TILE // SLICE)
+                or A.slice_ptr.numel() != A.xbase.numel() + 1
+                or A.coff.shape != A.cval.shape):
+            raise ValueError("compact WJD arrays do not match the plan's "
+                             f"{Tp} tiles")
+    else:
+        if A.data is None:
+            raise ValueError("this WJD carries no slot planes on "
+                             f"{A.device}: its compact form serves it")
+        operands = [A.data, A.brow, A.diag_u]
+        if A.kernel_mode == "gather":
+            if A.uloc is None or A.uloc.dtype not in _ULOC_DTYPES:
+                raise TypeError("gather-mode WJD needs a uint8/int16 uloc "
+                                "plane")
+            operands.append(A.uloc)
+        elif A.kernel_mode != "roll":
+            raise ValueError(f"unknown WJD kernel mode {A.kernel_mode!r}")
+        if A.brow.dtype != torch.int32 or A.diag_u.dtype != torch.int32:
+            raise TypeError("WJD brow/diag_u must be int32")
+        Tp, K = A.brow.shape
+        if tuple(A.data.shape) != (Tp, K, 8, 128):
+            raise ValueError(f"WJD data shape {tuple(A.data.shape)} != "
+                             f"{(Tp, K, 8, 128)}")
+    for t in operands + [xp]:
         if t.device != xp.device or not t.is_contiguous():
             raise ValueError("WJD kernel operands must be contiguous and on "
                              f"{xp.device}")
     if not xp.is_cuda:
         raise ValueError("WJD kernels take CUDA tensors only")
-    if A.brow.dtype != torch.int32 or A.diag_u.dtype != torch.int32:
-        raise TypeError("WJD brow/diag_u must be int32")
-    Tp, K = A.brow.shape
-    if tuple(A.data.shape) != (Tp, K, 8, 128):
-        raise ValueError(f"WJD data shape {tuple(A.data.shape)} != "
-                         f"{(Tp, K, 8, 128)}")
     return tag
 
 
 def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Slot product through the direct kernel (CUDA tensors only)."""
-    tag = _check_operands(A, xp)
+    """Slot product through the direct kernel (CUDA tensors only): over the
+    slot planes in roll mode, over the compact form in gather mode."""
+    compact = A.kernel_mode == "gather"
+    tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
         raise ValueError(f"padded x must have shape ({A.xp_len},)")
     Tp, K = A.brow.shape
     y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
-    _launch("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K)
+    if compact:
+        _launch_compact("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(),
+                        A.xbase.numel())
+    else:
+        _launch("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K)
     return y
 
 
@@ -208,8 +285,12 @@ def slots_kernel_mrhs(A: WJD, xp: torch.Tensor,
     only). xp is padded X of 4, 8 or 16 columns: (xp_len, kc) and the
     result (Tp*1024, kc) when `row_major`, which is what `wjd_spmm` uses;
     else planes (kc, xp_len) and (kc, Tp*1024), the reference's layout,
-    kept so that both can be timed on the same operands (PERF.md)."""
-    tag = _check_operands(A, xp)
+    which the roll kernel keeps so that both can be timed on the same
+    operands (PERF.md). Gather mode reads the compact form, row-major."""
+    compact = A.kernel_mode == "gather"
+    if compact and not row_major:
+        raise ValueError("the gather SpMM kernel takes row-major X only")
+    tag = _check_operands(A, xp, compact)
     kc = xp.shape[1 if row_major else 0] if xp.dim() == 2 else 0
     want = (A.xp_len, kc) if row_major else (kc, A.xp_len)
     if kc not in _MRHS_WIDTHS or tuple(xp.shape) != want:
@@ -218,8 +299,12 @@ def slots_kernel_mrhs(A: WJD, xp: torch.Tensor,
     Tp, K = A.brow.shape
     shape = (Tp * TILE, kc) if row_major else (kc, Tp * TILE)
     y = torch.empty(shape, dtype=xp.dtype, device=xp.device)
-    _launch("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K, kc,
-            int(row_major), A.xp_len)
+    if compact:
+        _launch_compact("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(),
+                        A.xbase.numel(), kc)
+    else:
+        _launch("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K, kc,
+                int(row_major), A.xp_len)
     return y
 
 
@@ -228,9 +313,9 @@ def _check_x(A: WJD, x: torch.Tensor, dim: int) -> None:
     if x.dim() != dim or x.shape[0] != m:
         want = f"({m},)" if dim == 1 else f"({m}, k)"
         raise ValueError(f"x must have shape {want}, got {tuple(x.shape)}")
-    if x.dtype != A.data.dtype or x.device != A.data.device:
+    if x.dtype != A.dtype or x.device != A.device:
         raise TypeError(f"x ({x.dtype}, {x.device}) does not match the WJD "
-                        f"operand ({A.data.dtype}, {A.data.device})")
+                        f"operand ({A.dtype}, {A.device})")
 
 
 def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
@@ -274,35 +359,51 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
 
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
-    launches a kernel, the windowed one where the plan is in the windowed
-    regime for x's dtype; a CPU tensor takes the plain version of the
-    same."""
+    launches a kernel: the windowed one where the plan is in the windowed
+    regime for x's dtype, else the direct one (on the compact form in
+    gather mode). A CPU tensor takes the plain version of the same."""
     if windowed(A, x.dtype):
         slots = slots_kernel_windowed if x.is_cuda else slots_plain_windowed
+    elif x.is_cuda:
+        slots = slots_kernel
     else:
-        slots = slots_kernel if x.is_cuda else slots_plain
+        slots = (slots_plain_compact if A.kernel_mode == "gather"
+                 else slots_plain)
     return _apply(A, x, slots)
 
 
 def wjd_spmm(A: WJD, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for X of shape (m, k): blocked right-hand sides, at most
-    MRHS_MAX_COLS columns a launch. A CUDA tensor launches the SpMM kernel;
-    a CPU tensor takes the plain version."""
-    return _apply_mrhs(A, X, slots_kernel_mrhs if X.is_cuda
-                       else slots_plain_mrhs)
+    MRHS_MAX_COLS columns a launch. A CUDA tensor launches the SpMM kernel
+    (on the compact form in gather mode); a CPU tensor takes the plain
+    version of the same."""
+    if X.is_cuda:
+        slots = slots_kernel_mrhs
+    else:
+        slots = (slots_plain_compact_mrhs if A.kernel_mode == "gather"
+                 else slots_plain_mrhs)
+    return _apply_mrhs(A, X, slots)
 
 
 def wjd_reference(A: WJD, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch WJD product (gather + sum over slots) on any device,
-    for x of shape (m,) or (m, k)."""
+    """Plain PyTorch WJD product on any device, for x of shape (m,) or
+    (m, k): gather + sum over the padded slots wherever the WJD carries its
+    slot planes, else over the compact form."""
+    padded = A.data is not None
     if x.dim() == 1:
-        return _apply(A, x, slots_plain)
-    return _apply_mrhs(A, x, slots_plain_mrhs)
+        return _apply(A, x, slots_plain if padded else slots_plain_compact)
+    return _apply_mrhs(A, x, slots_plain_mrhs if padded
+                       else slots_plain_compact_mrhs)
 
 
-def slot_bytes(A: WJD) -> int:
-    """Operand bytes one kernel call streams: values (+ uloc in gather)."""
+def slot_bytes(A: WJD, compact: bool = False) -> int:
+    """Operand bytes one kernel call streams from the plan: slot values
+    (+ uloc in gather mode) with brow and diag_u, or the compact form's
+    values, offsets, slice_ptr and xbase."""
+    if compact:
+        return sum(t.numel() * t.element_size()
+                   for t in (A.cval, A.coff, A.slice_ptr, A.xbase))
     Tp, K = A.brow.shape
-    per = A.data.element_size() + (A.uloc.element_size()
-                                   if A.uloc is not None else 0)
-    return Tp * K * TILE * per
+    per = A.dtype.itemsize + (A.uloc.element_size()
+                              if A.kernel_mode == "gather" else 0)
+    return Tp * K * (TILE * per + 2 * 4)

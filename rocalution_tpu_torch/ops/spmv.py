@@ -67,7 +67,7 @@ def _use_kernel(wjd: WJD, xdt) -> bool:
     """Can this WJD plan serve a rhs of dtype `xdt`? f32 x rides an f32
     plan, f64 x an f64 plan (the JAX package's dtype rules)."""
     if xdt in (torch.float32, torch.float64):
-        return wjd.data.dtype == xdt
+        return wjd.dtype == xdt
     return False
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each WJD entry point (direct,
-windowed, blocked right-hand sides) against its plain PyTorch version, and
-the CG slice going through them.
+windowed, blocked right-hand sides) against its plain PyTorch version, the
+compact gather kernels against the padded slot product as well, and the CG
+slice going through them.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor rocalution_tpu, so on a machine without JAX they run with
@@ -8,8 +9,11 @@ jax nor rocalution_tpu, so on a machine without JAX they run with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import rocalution_tpu_torch as rt
@@ -49,14 +53,14 @@ def test_kernel_matches_plain_version(cuda_device, key):
     make, kw = CASES[key]
     W = from_csr(make(), device=cuda_device, **kw)
     assert key.startswith(W.kernel_mode)
-    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    x = _x(W.shape[1], W.dtype, cuda_device)
     before = kernels.launches[key]
     got = kernels.wjd_spmv(W, x)
     torch.cuda.synchronize()
     assert kernels.launches[key] == before + 1
     want = kernels.wjd_reference(W, x)
     err = float((got - want).abs().max() / want.abs().max())
-    assert err <= TOL[W.data.dtype], (key, err)
+    assert err <= TOL[W.dtype], (key, err)
 
 
 @pytest.mark.parametrize("key", ["gather_f64", "gather_f32"])
@@ -64,10 +68,10 @@ def test_kernel_with_heavy_spill(cuda_device, key):
     make, _ = CASES[key]
     W = from_csr(make(), device=cuda_device, max_slots=4)
     assert W.spill_row.numel() > 0
-    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    x = _x(W.shape[1], W.dtype, cuda_device)
     got, want = kernels.wjd_spmv(W, x), kernels.wjd_reference(W, x)
     assert float((got - want).abs().max() / want.abs().max()) \
-        <= TOL[W.data.dtype]
+        <= TOL[W.dtype]
 
 
 def test_kernel_raises_on_mismatched_dtype(cuda_device):
@@ -103,19 +107,110 @@ def _rel(got, want):
 def test_spmm_kernel_matches_plain_version(cuda_device, key, row_major):
     make, kw = CASES[key]
     W = from_csr(make(), device=cuda_device, **kw)
+    gather = W.kernel_mode == "gather"
+    plain = (kernels.slots_plain_compact_mrhs if gather
+             else kernels.slots_plain_mrhs)
     for kc in (4, 8, 16):
-        X = _x(W.shape[1] * kc, W.data.dtype, cuda_device).view(-1, kc)
+        X = _x(W.shape[1] * kc, W.dtype, cuda_device).view(-1, kc)
         xp = kernels.pad_x(W, X, kc)
-        want = kernels.slots_plain_mrhs(W, xp)
+        want = plain(W, xp)
         before = kernels.launches[f"spmm_{key}"]
         if row_major:
             got = kernels.slots_kernel_mrhs(W, xp)
+        elif gather:                 # the compact kernel has no planes form
+            with pytest.raises(ValueError):
+                kernels.slots_kernel_mrhs(W, xp.t().contiguous(),
+                                          row_major=False)
+            continue
         else:
             got = kernels.slots_kernel_mrhs(W, xp.t().contiguous(),
                                             row_major=False).t()
         torch.cuda.synchronize()
         assert kernels.launches[f"spmm_{key}"] == before + 1
-        assert _rel(got, want) <= TOL[W.data.dtype], (key, kc)
+        assert _rel(got, want) <= TOL[W.dtype], (key, kc)
+
+
+def _wide_rows(dtype):
+    """2,500 rows (a ragged third tile) whose columns scatter over 150,000:
+    every slice spans more than 65,535 elements of x."""
+    rng = np.random.default_rng(5)
+    S = sp.random(2500, 150_000, density=8 / 150_000, format="csr",
+                  random_state=rng)
+    S.data = rng.standard_normal(S.nnz).astype(dtype)
+    S.sort_indices()
+    return rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
+                              S.indptr.astype(np.int32), S.shape,
+                              device="cpu")
+
+
+COMPACT = {
+    # name: (make on the CPU, planner kwargs, offset dtype)
+    "band_u16": (lambda dt: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=dt, device="cpu"), {}, torch.uint16),
+    "band_spill_u16": (lambda dt: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=dt, device="cpu"), {"max_slots": 4},
+        torch.uint16),
+    "wide_i32": (_wide_rows, {"split_dia": False}, torch.int32),
+}
+
+
+def _on_card(W):
+    """A CPU WJD moved to the card whole: slot planes and compact form."""
+    return dataclasses.replace(W, **{
+        f.name: getattr(W, f.name).cuda() for f in dataclasses.fields(W)
+        if isinstance(getattr(W, f.name), torch.Tensor)})
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(COMPACT))
+def test_compact_kernels_match_compact_and_padded_plain(cuda_device, name,
+                                                        dtype):
+    """The compact gather kernels, single and blocked right-hand sides,
+    against the plain version over the compact form and against the padded
+    slot product, for 2-byte and 4-byte offsets and a ragged last tile."""
+    make, kw, off_dtype = COMPACT[name]
+    A = make(dtype)
+    assert A.shape[0] % 1024
+    W = _on_card(from_csr(A, kernel_mode="gather", **kw))
+    assert W.coff.dtype == off_dtype and W.data is not None
+    tag = "f64" if dtype == np.float64 else "f32"
+    tol = TOL[W.dtype]
+    x = _x(W.shape[1], W.dtype, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = kernels.launches[f"gather_{tag}"]
+    got = kernels.slots_kernel(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"gather_{tag}"] == before + 1
+    assert _rel(got, kernels.slots_plain_compact(W, xp)) <= tol
+    assert _rel(got, kernels.slots_plain(W, xp)) <= tol
+    for kc in (4, 8, 16):
+        X = _x(W.shape[1] * kc, W.dtype, cuda_device).view(-1, kc)
+        xq = kernels.pad_x(W, X, kc)
+        before = kernels.launches[f"spmm_gather_{tag}"]
+        Y = kernels.slots_kernel_mrhs(W, xq)
+        torch.cuda.synchronize()
+        assert kernels.launches[f"spmm_gather_{tag}"] == before + 1
+        assert _rel(Y, kernels.slots_plain_compact_mrhs(W, xq)) <= tol
+        assert _rel(Y, kernels.slots_plain_mrhs(W, xq)) <= tol
+        # a column does not depend on the chunk it rode in
+        y0 = kernels.slots_kernel(W, xq[:, 0].contiguous()).reshape(-1)
+        assert torch.equal(Y[:, 0], y0), kc
+
+
+def test_gather_plan_on_the_card_carries_no_slot_planes(cuda_device):
+    """Outside the windowed f32 regime a gather-mode plan is served from
+    its compact form alone; the reference and `to_csr` follow it."""
+    A = rt.random_banded_spd(3000, bandwidth=512)
+    W = from_csr(A, device=cuda_device)
+    assert W.data is None and W.uloc is None and W.cval.is_cuda
+    assert W.dtype == torch.float64 and W.device.type == "cuda"
+    B = rt.convert(W, "CSR")
+    for a, b in zip(A.numpy_triplet(), B.numpy_triplet()):
+        np.testing.assert_array_equal(a, b)
+    x = _x(3000, torch.float64, cuda_device)
+    assert _rel(kernels.wjd_reference(W, x), rt.spmv(B, x)) <= 1e-12
+    with pytest.raises(ValueError):             # no planes for this kernel
+        kernels.slots_kernel_windowed(W, kernels.pad_x(W, x))
 
 
 @pytest.mark.parametrize("k", [1, 5, 16, 20])
@@ -126,16 +221,16 @@ def test_spmv_of_2d_x_goes_through_the_spmm_kernel(cuda_device, key, k):
     rt.attach_wjd(A, **kw)
     assert A.data.is_cuda                      # the default device is the card
     W = A._wjd_cache
-    X = _x(W.shape[1] * k, W.data.dtype, cuda_device).view(-1, k)
+    X = _x(W.shape[1] * k, W.dtype, cuda_device).view(-1, k)
     before = kernels.launches[f"spmm_{key}"]
     Y = rt.spmv(A, X)
     torch.cuda.synchronize()
     assert kernels.launches[f"spmm_{key}"] == before + -(-k // 16)
     assert Y.shape == (A.shape[0], k)
-    assert _rel(Y, kernels.wjd_reference(W, X)) <= TOL[W.data.dtype]
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= TOL[W.dtype]
     singles = torch.stack([kernels.wjd_spmv(W, X[:, j].contiguous())
                            for j in range(k)], dim=1)
-    assert _rel(Y, singles) <= TOL[W.data.dtype]
+    assert _rel(Y, singles) <= TOL[W.dtype]
 
 
 @pytest.mark.parametrize("key", ["roll_f64", "roll_f32", "gather_f32"])
@@ -147,27 +242,29 @@ def test_windowed_kernel_matches_plain_version(cuda_device, key, monkeypatch):
     monkeypatch.setattr(wjd_mod, "_auto_group_windowed", lambda K: 1)
     make, kw = CASES[key]
     W = from_csr(make(), device=cuda_device, **kw)
-    assert windowed(W, W.data.dtype) and len(W.win_base) > 1
-    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    assert windowed(W, W.dtype) and len(W.win_base) > 1
+    x = _x(W.shape[1], W.dtype, cuda_device)
     xp = kernels.pad_x(W, x)
     before = kernels.launches[f"win_{key}"]
     got = kernels.slots_kernel_windowed(W, xp)
     torch.cuda.synchronize()
     assert kernels.launches[f"win_{key}"] == before + 1
     assert _rel(got, kernels.slots_plain_windowed(W, xp)) \
-        <= TOL[W.data.dtype]
+        <= TOL[W.dtype]
     # the entry point takes the windowed kernel by itself
     y = kernels.wjd_spmv(W, x)
     assert kernels.launches[f"win_{key}"] == before + 2
-    assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[W.data.dtype]
+    assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[W.dtype]
 
 
 def test_refused_launches_raise(cuda_device, monkeypatch):
     W = from_csr(rt.random_banded_spd(3000, bandwidth=512),
                  device=cuda_device)
-    x = _x(W.shape[1], W.data.dtype, cuda_device)
+    x = _x(W.shape[1], W.dtype, cuda_device)
     with pytest.raises(TypeError):              # no windowed gather in f64
-        kernels.slots_kernel_windowed(W, kernels.pad_x(W, x))
+        kernels.slots_kernel_windowed(_on_card(from_csr(
+            rt.random_banded_spd(3000, bandwidth=512, device="cpu"))),
+            kernels.pad_x(W, x))
     with pytest.raises(ValueError):             # 5 columns: not a built width
         kernels.slots_kernel_mrhs(W, kernels.pad_x(W, x[:, None], 5))
     with pytest.raises(ValueError):             # CPU x against CUDA operands

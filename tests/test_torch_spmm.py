@@ -8,7 +8,11 @@ run as tests/test_wjd.py runs it: the Pallas blocked-RHS kernel in interpret
 mode for f32 (rtol 2e-5: f32 sums in another order), `wjd_reference` per
 column for f64 (rtol 1e-13: f64 sums in another order). The interpreted
 operators keep the reference tests' sizes (600 x 500, 300 x 300): an
-interpreted f32 gather plan costs seconds. The CUDA kernel itself is
+interpreted f32 plan costs seconds per chunk width it is traced for. So the
+JAX side runs once per operator and value type, on 20 columns in chunks of
+two (one trace) with one tile per grid step, and a case with k columns holds the port's product of the
+first k columns against the first k columns of that: a column of Y depends
+on its own column of X alone, in both packages. The CUDA kernel itself is
 checked by tests/test_torch_kernels.py, which needs a card.
 """
 
@@ -63,8 +67,8 @@ OPERATORS = {
                                    rt.laplacian_2d(20, dtype=dt)),
                        {}, None),
 }
-# k = 20 crosses the port's chunk of 16 columns. Interpreted f32 plans take
-# the four widths on one gather and one roll operator only.
+# k = 20 crosses the port's chunk of 16 columns. f32 plans take the four
+# widths on one gather and one roll operator only.
 CASES = (
     [("rand_300x300", np.float32, k) for k in (1, 5, 16, 20)]
     + [("lap2d_20_roll", np.float32, k) for k in (1, 5, 16, 20)]
@@ -79,8 +83,8 @@ CASES = (
 
 @pytest.fixture(autouse=True)
 def jax_chunks_of_two(monkeypatch):
-    """The JAX side computes its reference in chunks of at most 2 columns
-    (as tests/test_wjd.py::test_wjd_spmm_chunking sets 3): the interpreted
+    """The JAX side computes its reference in chunks of 2 columns (as
+    tests/test_wjd.py::test_wjd_spmm_chunking sets 3): the interpreted
     kernel is traced per chunk width, and a 16-column trace costs half a
     minute. Its result does not depend on the chunk; the port's chunk stays
     at 16."""
@@ -89,8 +93,41 @@ def jax_chunks_of_two(monkeypatch):
     monkeypatch.setattr(jax_mod, "_MRHS_MAX_COLS", 2)
 
 
+@pytest.fixture(autouse=True)
+def one_tile_steps(monkeypatch):
+    """One tile per grid step in both planners. These operators have one
+    tile of rows, which the planners pad to a group of 8, and the
+    interpreted kernel unrolls group x K slot bodies: seven tiles of zeros
+    cost most of its seconds. The product does not depend on the grouping
+    (tests/test_torch_wjd_window.py sets it so too)."""
+    import rocalution_tpu.formats.wjd as jax_wjd
+    import rocalution_tpu_torch.formats.wjd as torch_wjd
+
+    for mod in (jax_wjd, torch_wjd):
+        monkeypatch.setattr(mod, "_auto_group", lambda K: 1)
+
+
 def _X(m, k, dtype, seed=11):
-    return np.random.default_rng(seed).standard_normal((m, k)).astype(dtype)
+    """The first k of 20 columns made from the seed."""
+    X = np.random.default_rng(seed).standard_normal((m, 20)).astype(dtype)
+    return np.ascontiguousarray(X[:, :k])
+
+
+_JAX_Y = {}
+
+
+def _jax_spmm(name, dtype):
+    """(kernel mode, Y) of the JAX package for operator `name` on the 20
+    columns of `_X`, computed once."""
+    key = (name, np.dtype(dtype).name)
+    if key not in _JAX_Y:
+        make, kw, _ = OPERATORS[name]
+        Aj, _ = make(dtype)
+        Wj = jax_from_csr(Aj, cache=False, **kw)
+        X = _X(Aj.shape[1], 20, dtype)
+        _JAX_Y[key] = (Wj.kernel_mode,
+                       np.asarray(jrt.spmv(Wj, jnp.asarray(X))))
+    return _JAX_Y[key]
 
 
 def _close(got, want, dtype):
@@ -102,9 +139,10 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("name,dtype,k", CASES)
 def test_wjd_spmm_matches_jax(name, dtype, k):
     make, kw, mode = OPERATORS[name]
-    Aj, At = make(dtype)
-    Wj, Wt = jax_from_csr(Aj, cache=False, **kw), from_csr(At, **kw)
-    assert Wt.kernel_mode == Wj.kernel_mode
+    _, At = make(dtype)
+    Wt = from_csr(At, **kw)
+    jax_mode, want = _jax_spmm(name, dtype)
+    assert Wt.kernel_mode == jax_mode
     if mode is None:
         assert Wt.nnz == 0 and Wt.dia_data is not None
     else:
@@ -114,14 +152,15 @@ def test_wjd_spmm_matches_jax(name, dtype, k):
     X = _X(At.shape[1], k, dtype)
     got = rt.spmv(Wt, torch.from_numpy(X))
     assert got.shape == (At.shape[0], k) and got.is_contiguous()
-    _close(got.numpy(), np.asarray(jrt.spmv(Wj, jnp.asarray(X))), dtype)
+    _close(got.numpy(), want[:, :k], dtype)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_csr_with_attached_plan_spmm_matches_jax(dtype):
-    """A CSR with an attached plan sends a 2-D x to the blocked-RHS path."""
+    """A CSR with an attached plan sends a 2-D x to the blocked-RHS path
+    (4 columns: the JAX side's chunks of two need no trace of their own)."""
     Aj, At = _rand_pair(300, 300, 0.02, dtype)
-    X = _X(300, 5, dtype)
+    X = _X(300, 4, dtype)
     plain = rt.spmv(At, torch.from_numpy(X)).numpy()       # plain CSR apply
     jax_attach_wjd(Aj)
     rt.attach_wjd(At)

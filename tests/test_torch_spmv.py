@@ -34,6 +34,22 @@ def on_the_cpu():
     yield
     rt.set_default_device(before)
 
+
+
+@pytest.fixture(autouse=True)
+def one_tile_steps(monkeypatch):
+    """One tile per grid step in both planners. The planners pad the one to
+    three tiles of these operators to groups of up to 8, and the
+    interpreted Pallas kernels unroll group x K slot bodies: the tiles of
+    zeros cost most of their seconds. The product does not depend on the
+    grouping (tests/test_torch_wjd_window.py sets it so too)."""
+    import rocalution_tpu.formats.wjd as jax_wjd
+    import rocalution_tpu_torch.formats.wjd as torch_wjd
+
+    for mod in (jax_wjd, torch_wjd):
+        monkeypatch.setattr(mod, "_auto_group", lambda K: 1)
+
+
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
     "lap3d_12": lambda m, dt: m.laplacian_3d(12, dtype=dt),
@@ -80,8 +96,8 @@ def test_dia_spmv_matches_jax(dtype):
 
 
 # f64 plans are never split, so split_dia=False changes only f32 plans;
-# interpreted Pallas costs seconds per plan (~13 s for the f32 random
-# gather), so f32 takes one split_dia=False case per kernel mode
+# interpreted Pallas costs seconds per plan, so f32 takes one
+# split_dia=False case per kernel mode
 WJD_CASES = (
     [(n, np.float64, "auto") for n in sorted(GENERATORS)]
     + [(n, np.float32, "auto") for n in sorted(GENERATORS)]

@@ -91,6 +91,9 @@ CASES = [  # name, dtype, windowed under a small budget?
     ("randband_3000", np.float32, True),   # gather f32: _kernel_hbm
     ("randband_3000", np.float64, False),  # gather f64: no windowed kernel
 ]
+# what a CPU tensor takes outside the windowed regime: the slot product in
+# roll mode, the product over the compact slice form in gather mode
+DIRECT = {"lap3d_12": "slots_plain", "randband_3000": "slots_plain_compact"}
 
 
 @pytest.mark.parametrize("name,dtype,want", CASES)
@@ -103,15 +106,16 @@ def test_windowed_dispatch(name, dtype, want, monkeypatch):
     W = from_csr(At, split_dia=False)
     assert windowed(W, TORCH_DT[dtype]) is want
     calls = []
-    for fn in ("slots_plain", "slots_plain_windowed"):
+    for fn in ("slots_plain", "slots_plain_windowed", "slots_plain_compact"):
         monkeypatch.setattr(kernels, fn, lambda A, xp, fn=fn, real=getattr(
             kernels, fn): calls.append(fn) or real(A, xp))
     x = torch.from_numpy(_x(At.shape[1], dtype))
     y = kernels.wjd_spmv(W, x)
-    assert calls == ["slots_plain_windowed" if want else "slots_plain"]
+    assert calls == ["slots_plain_windowed" if want else DIRECT[name]]
     torch.testing.assert_close(y, kernels.wjd_reference(W, x),
                                rtol=RTOL[dtype], atol=RTOL[dtype])
-    assert set(calls[1:]) == {"slots_plain"}       # the reference is direct
+    # the reference is the padded slot product, direct
+    assert set(calls[1:]) == {"slots_plain"}
 
 
 def test_windowed_needs_windows():
