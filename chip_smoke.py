@@ -19,9 +19,10 @@ each went through its kernels:
   J    ELL, HYB and BCSR operands routed through a WJD plan; COO, MCSR and
        DENSE plain applies
 
-The gather-mode kernels of C and H read the plan's row-compacted slice form;
-they are held against the plain version over that form and against the
-padded slot product over the plan's planes.
+The gather-mode kernels of C, H and I read the plan's row-compacted slice
+form (window-relative in I, where the kernel reads x through each step's
+window); they are held against the plain version over that form and against
+the padded slot product over the plan's planes.
 
 Each kernel row carries its time, the plain version's, `bound_ms` (the least
 time the card could take for the product, whatever layout serves it: the
@@ -157,7 +158,7 @@ def rel_err(got, want, tag, tol):
     return max_abs, rel
 
 
-def bounds(W, kernels, cols=1, compact=False):
+def bounds(W, kernels, cols=1, compact=False, through_windows=False):
     """{"bound_ms", "bound_by", "own_bytes_ms"} of one slot product on
     `cols` columns. The bound is the product's, whatever layout serves it:
     the values of the nonzeros the slots hold, x and y, each once, over the
@@ -171,7 +172,7 @@ def bounds(W, kernels, cols=1, compact=False):
     nnz = W.nnz - W.spill_row.numel()
     t_bytes = (nnz + (n + m) * cols) * isz / PEAK_BYTES * 1e3
     t_ops = 2 * nnz * cols / PEAK_FLOPS[W.dtype] * 1e3
-    own = (kernels.slot_bytes(W, compact)
+    own = (kernels.slot_bytes(W, compact, through_windows)
            + (W.xp_len + W.brow.shape[0] * 1024) * isz * cols)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -183,20 +184,22 @@ def bounds_text(b):
             f"product), own bytes {b['own_bytes_ms'] * 1e3:.1f} us")
 
 
-def with_planes(rt, A, attach_kw):
+def with_planes(rt, A, attach_kw, ordered=True):
     """A gather-mode plan on the card is served from its compact form and
     carries no slot planes. Plan A once more on the host and return the
     attached plan with the padded planes beside its compact form, so that
-    the padded slot product can be computed on the card; the same plan
-    with the rows of each tile ordered by length before compacting, for
-    timing only (its offsets belong to the rows' old places, so its
-    product is not A's): what the padding that is left costs; the seconds
-    the plan took and the seconds compacting took."""
+    the padded slot product can be computed on the card; with `ordered`,
+    the same plan with the rows of each tile ordered by length before
+    compacting (else None), for timing only (its offsets belong to the
+    rows' old places, so its product is not A's): what the padding that is
+    left costs; the seconds the plan took and the seconds compacting
+    took."""
     from rocalution_tpu_torch.formats.wjd import (compact_slices,
                                                   csr_to_wjd_plan)
 
-    def on_card(arrays):
-        return {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    def on_card(fields):
+        return {k: torch.from_numpy(v).cuda() if isinstance(v, np.ndarray)
+                else v for k, v in fields.items()}
 
     t0 = time.perf_counter()
     plan = csr_to_wjd_plan(*A.numpy_triplet(), A.shape, **attach_kw)
@@ -206,6 +209,8 @@ def with_planes(rt, A, attach_kw):
     W = A._wjd_cache
     W_pad = dataclasses.replace(W, **on_card(
         {"data": plan["data"], "uloc": plan["uloc"]}))
+    if not ordered:
+        return W_pad, None, t1 - t0, t2 - t1
     Tp, K = plan["brow"].shape
     data = plan["data"].reshape(Tp, K, 1024)
     order = np.argsort(-(data != 0).sum(axis=1), axis=1,
@@ -471,9 +476,10 @@ def phase_g_host(rt, kernels, A, A_plain):
 def phase_h(rt, kernels, totals, ops, single, padded):
     """Blocked right-hand sides: the SpMM kernel against its plain version
     on 16 columns, then the entry point rt.spmv(A, X) on 16 and 20 columns
-    against the plain version and against 16 single-RHS applies. Roll mode
-    is timed in both layouts of padded X; gather mode (the compact slice
-    form, row-major X) is held against the padded slot product too."""
+    against the plain version and against 16 single-RHS applies. X is
+    row-major. Roll mode is held column by column against the single-RHS
+    kernel, bit for bit; gather mode (the compact slice form) against the
+    padded slot product too."""
     results = {}
     for key, (A, _) in ops.items():
         W = A._wjd_cache
@@ -498,31 +504,14 @@ def phase_h(rt, kernels, totals, ops, single, padded):
                        f"rows of a tile ordered by length: {o_ms * 1e3:.1f} "
                        "us")
         else:
-            # pad, launch and trim, as the wrapper does it, in each layout:
-            # the planes pay two transposing copies around the launch
-            xpl = xp.t().contiguous()                # (16, xp_len) planes
-            rel_err(kernels.slots_kernel_mrhs(W, xpl, row_major=False).t(),
-                    y_k, f"spmm_{key} planes", tol)
-            pl_ms = median_ms(lambda: kernels.slots_kernel_mrhs(
-                W, xpl, row_major=False))
-
-            def padded_row_major():
-                return kernels.slots_kernel_mrhs(
-                    W, kernels.pad_x(W, X[16]))[:n]
-
-            def padded_planes():
-                xq = X[16].new_zeros((16, W.xp_len))
-                xq[:, W.pad_lo:W.pad_lo + m] = X[16].t()
-                return kernels.slots_kernel_mrhs(
-                    W, xq, row_major=False)[:, :n].t().contiguous()
-
-            rel_err(padded_planes(), padded_row_major(),
-                    f"spmm_{key} layouts", tol)
-            layouts = (f"{pl_ms * 1e3:.1f} us with X in planes; with padding "
-                       f"and trimming {median_ms(padded_row_major) * 1e3:.1f}"
-                       f" us row-major against "
-                       f"{median_ms(padded_planes) * 1e3:.1f} us planes")
-            del xpl
+            # a column is the single-RHS roll kernel's sum, bit for bit
+            for j in range(16):
+                y_j = kernels.slots_kernel(W, xp[:, j].contiguous())
+                if not torch.equal(y_k[:, j], y_j.reshape(-1)):
+                    raise RuntimeError(f"spmm_{key}: column {j} is not the "
+                                       "single-RHS kernel's, bit for bit")
+            layouts = ("every column bit for bit the single-RHS roll "
+                       "kernel's")
         del y_k
         b = bounds(W, kernels, 16, compact=gather)
         with Counted(kernels, totals) as c:
@@ -611,29 +600,51 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
     say("I", line)
 
     tol = TOL[W.dtype]
+    gather = W.kernel_mode == "gather"
     xv = random_x(rt, A, W.dtype)
     xp = kernels.pad_x(W, xv)
-    y_p = kernels.slots_plain_windowed(W, xp)
-    max_abs, rel = rel_err(kernels.slots_kernel_windowed(W, xp), y_p, key,
-                           tol)
+    plain = (kernels.slots_plain_compact_windowed if gather
+             else kernels.slots_plain_windowed)
+    y_k = kernels.slots_kernel_windowed(W, xp)
+    max_abs, rel = rel_err(y_k, plain(W, xp), key, tol)
     rel_err(kernels.wjd_spmv(W, xv), kernels.wjd_reference(W, xv),
             f"{key} full op", tol)
-    del y_p
+    extra = ""
+    if gather:
+        # the plan on the card: its window-relative compact form alone
+        if W.data is not None or W.uloc is not None or not W.window_relative:
+            raise RuntimeError(f"I {tag}: the plan keeps its slot planes on "
+                               "the card")
+        W_pad, _, plan_s, compact_s = with_planes(rt, A, attach_kw,
+                                                  ordered=False)
+        _, rel_p = rel_err(y_k, kernels.slots_plain(W_pad, xp),
+                           f"{key} vs padded slot product", tol)
+        del W_pad
+        if not torch.equal(y_k, kernels.slots_kernel(W, xp)):
+            raise RuntimeError(f"{key}: not the direct compact kernel's "
+                               "sums, bit for bit")
+        extra = (f" | compact form {W.cval.numel()} elements, padding "
+                 f"{W.compact_padding_ratio:.3f}x, {W.coff.element_size()}"
+                 f"-byte window-relative offsets ({plan_s:.1f} s planning, "
+                 f"{compact_s:.1f} s compacting when done again); vs padded "
+                 f"slot product {rel_p:.3e}; bit for bit the direct compact "
+                 f"kernel's | window {W.win_rows * 128 * 4} bytes, read "
+                 f"through the cache")
+    del y_k
     k_ms = median_ms(lambda: kernels.slots_kernel_windowed(W, xp))
     d_ms = median_ms(lambda: kernels.slots_kernel(W, xp))
     k2_ms = median_ms(lambda: kernels.slots_kernel_windowed(W, xp))
-    p_ms = median_ms(lambda: kernels.slots_plain_windowed(W, xp))
+    p_ms = median_ms(lambda: plain(W, xp))
     lib_ms = library_ms(A, xv)
-    b = bounds(W, kernels)
-    direct = ("direct kernel on the plan's compact form"
-              if W.kernel_mode == "gather"
+    b = bounds(W, kernels, compact=gather, through_windows=gather)
+    direct = ("direct compact kernel on the same form" if gather
               else "direct kernel on the same plan")
     say("I", f"{key}: {plan_line(A, W)} steps="
-        f"{W.win_base.numel()} | max|dy|/max|y|={rel:.3e} (tol {tol:g}) | "
-        f"windowed kernel {k_ms * 1e3:.1f} us (again {k2_ms * 1e3:.1f}), "
-        f"{direct} {d_ms * 1e3:.1f} us | {bounds_text(b)}, plain "
-        f"{p_ms * 1e3:.1f} us, sparse-CSR library call "
-        f"{lib_ms * 1e3:.1f} us")
+        f"{W.win_base.numel()}{extra} | max|dy|/max|y|={rel:.3e} (tol "
+        f"{tol:g}) | windowed kernel {k_ms * 1e3:.1f} us (again "
+        f"{k2_ms * 1e3:.1f}), {direct} {d_ms * 1e3:.1f} us | "
+        f"{bounds_text(b)}, plain {p_ms * 1e3:.1f} us, sparse-CSR library "
+        f"call {lib_ms * 1e3:.1f} us")
     return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
                   "library_ms": lib_ms, **b}}
 

@@ -22,29 +22,37 @@
 // X and Y: one sixteenth per column of what sixteen single applies stream.
 // What then sets the pace is the gather of X through L1 and L2.
 //
+// Both kernels put the lanes of a warp across the columns. Their first
+// versions gave one thread a row and KC register accumulators; a thread's 16
+// doubles of row-major X are then a 128-byte line of its own, so one warp
+// load touched 32 lines, and the f64 kernels ran at a third of their bound.
+//
 // Roll mode (wjd_spmm_roll_kernel) streams the slot planes, which a banded
-// operator fills:
-//   * one thread owns one row (t, s, l), loops over k, loads the value, brow
-//     and diag_u once per slot and updates KC register accumulators (KC = 4,
-//     8 or 16 is a template parameter; a ragged chunk is padded up by the
-//     wrapper);
-//   * two layouts of padded X are instantiated. Row-major (xp_len, KC): a
-//     thread's KC values are contiguous (16-byte vector loads), and neither X
-//     nor Y needs a transpose; the wrapper uses it. Planes (KC, xp_len), the
-//     reference's layout: each column's loads coalesce along the lane, at the
-//     price of two transposes a call. Measured on the H100 at 1M rows and 16
-//     columns, row-major won in f32 and planes in f64 (a thread's 16 doubles
-//     are a whole 128-byte line, so a warp's vector load touches 32 lines),
-//     but the transposes cost more than the f64 kernel gained; the planes
-//     instantiation is kept so that a run on the card can time both on the
-//     same operands. See PERF.md.
+// operator fills. A slot's loads are regular: rows r .. r+31 of slot (t, k)
+// read the 32 consecutive rows of X from brow[t,k]*128 + r + diag_u[t,k] on,
+// one contiguous piece of 32*KC values.
+//   * one warp owns 32 consecutive rows of a tile. Per slot it loads their 32
+//     values coalesced (streamed, ld.global.cs), one a lane;
+//   * it then walks the rows 32/KC at a time, broadcasting a row's value with
+//     __shfl_sync: with KC = 16, lanes 0-15 take the 16 columns of one row
+//     and lanes 16-31 those of the next, so every access to X is whole
+//     128-byte lines read by adjacent lanes, and Y is written as whole lines;
+//   * each lane keeps KC accumulators: rows i*(32/KC) + lane/KC, i < KC, of
+//     its column lane%KC. A column is summed over k in ascending slot order,
+//     as the single-RHS roll kernel sums it, whatever KC is;
+//   * the next slot's value, brow and diag_u are loaded before this slot's
+//     reads of X start;
+//   * X is read once a slot (K times in all) through L1 and L2; that, not
+//     HBM, sets the pace. Blocks of 256 rows were the fastest of 128, 256,
+//     512 and 1024 on the H100 at 1M rows and 16 columns; a whole tile a
+//     block, meant to let slots with close diagonals share lines of X in L1,
+//     was the slowest in f32.
 //
 // Gather mode (wjd_compact_spmm_kernel) reads the plan's row-compacted slice
 // form (formats/wjd.py:compact_slices; csrc/spmv_wjd.cu says why). Its first
 // version walked the padded slot planes with one thread a row, as roll mode
-// does, and had a planes instantiation too; it streamed 5.6x the operator in
-// padding, gathered X for all of it, and in f64 each thread's row of X was a
-// line of its own. This one puts the lanes across the columns:
+// did; it streamed 5.6x the operator in padding and gathered X for all of
+// it. This one:
 //   * one warp owns one slice of 32 rows. Per rank it loads the 32 values and
 //     32 offsets of the slice coalesced (streamed, ld.global.cs), one a lane;
 //   * it then walks the slice's rows 32/KC at a time, broadcasting a row's
@@ -68,73 +76,57 @@
 namespace {
 
 constexpr int kTile = 1024;                       // rows per tile
-constexpr int kThreads = 256;                     // rows per block
-constexpr int kBlocksPerTile = kTile / kThreads;
-constexpr int kSlice = 32;                        // rows per compact slice
+constexpr int kSlice = 32;                        // rows per warp / slice
+constexpr int kRollThreads = 256;                 // rows per block
+static_assert(kTile % kRollThreads == 0 && kRollThreads % kSlice == 0,
+              "a block holds whole warps of one tile");
 constexpr int kCompactThreads = 128;              // 4 slices per block
 constexpr int kSlicesPerBlock = kCompactThreads / kSlice;
 
-template <typename T> struct Vec16;               // 16-byte vector of T
-template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
-
-template <typename T, int KC, bool kRowMajor>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int KC>
+__global__ void __launch_bounds__(kRollThreads)
 wjd_spmm_roll_kernel(const T* __restrict__ data,
                      const int32_t* __restrict__ brow,
                      const int32_t* __restrict__ diag_u,
-                     const T* __restrict__ xp, T* __restrict__ y, int K,
-                     int64_t xp_len, int64_t nrows) {
-  using V = typename Vec16<T>::type;
-  constexpr int kPerVec = 16 / sizeof(T);
-  constexpr int kVecs = KC / kPerVec;
-  static_assert(KC % kPerVec == 0, "KC columns must fill 16-byte vectors");
-
-  const int64_t t = blockIdx.x / kBlocksPerTile;
-  const int r = (blockIdx.x % kBlocksPerTile) * kThreads + threadIdx.x;
-  const int s = r >> 7;          // sublane of the row within its tile
-  const int l = r & 127;         // lane of the row
-  const int64_t slot0 = t * K;
+                     const T* __restrict__ xp, T* __restrict__ y, int K) {
+  constexpr int kRowsPerPass = kSlice / KC;
+  // the warp's first row, its tile, and the row's place in the tile
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRollThreads +
+                       threadIdx.x / kSlice * kSlice;
+  const int64_t slot0 = row0 / kTile * K;
+  const int r0 = static_cast<int>(row0 % kTile);
+  const int lane = threadIdx.x % kSlice;
+  const int h = lane / KC;       // which row of a pass this lane serves
+  const int c = lane % KC;       // which column
   T acc[KC];
 #pragma unroll
-  for (int j = 0; j < KC; ++j) acc[j] = T(0);
+  for (int i = 0; i < KC; ++i) acc[i] = T(0);
 
+  // slot (t, k) reads X rows brow*128 + s*128 + l + u = brow*128 + r + u.
+  // The next slot's operands are loaded before this slot's reads of X
+  // start, so that the two latencies overlap.
+  T v_next = __ldcs(data + slot0 * kTile + r0 + lane);
+  int64_t x_next =
+      static_cast<int64_t>(__ldg(brow + slot0)) * 128 + r0 + __ldg(diag_u + slot0);
   for (int k = 0; k < K; ++k) {
-    const int64_t slot = slot0 + k;
-    const int64_t e = slot * kTile + r;
-    const int u = __ldg(diag_u + slot);
-    const int64_t xi =
-        (static_cast<int64_t>(__ldg(brow + slot)) + s) * 128 + l + u;
-    const T v = __ldg(data + e);
-    if constexpr (kRowMajor) {
-      const V* __restrict__ xv = reinterpret_cast<const V*>(xp + xi * KC);
+    const T v = v_next;
+    const T* __restrict__ xs = xp + (x_next + h) * KC + c;
+    if (k + 1 < K) {
+      const int64_t slot = slot0 + k + 1;
+      v_next = __ldcs(data + slot * kTile + r0 + lane);
+      x_next = static_cast<int64_t>(__ldg(brow + slot)) * 128 + r0 +
+               __ldg(diag_u + slot);
+    }
 #pragma unroll
-      for (int q = 0; q < kVecs; ++q) {
-        union { V vec; T elem[kPerVec]; } w;
-        w.vec = __ldg(xv + q);
-#pragma unroll
-        for (int i = 0; i < kPerVec; ++i) acc[q * kPerVec + i] += v * w.elem[i];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < KC; ++j) acc[j] += v * __ldg(xp + j * xp_len + xi);
+    for (int i = 0; i < KC; ++i) {
+      const T vi = __shfl_sync(0xffffffffu, v, i * kRowsPerPass + h);
+      acc[i] += vi * __ldg(xs + i * kRowsPerPass * KC);
     }
   }
 
-  const int64_t row = t * kTile + r;
-  if constexpr (kRowMajor) {
-    V* __restrict__ yv = reinterpret_cast<V*>(y + row * KC);
+  T* __restrict__ ys = y + (row0 + h) * KC + c;
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q) {
-      union { V vec; T elem[kPerVec]; } w;
-#pragma unroll
-      for (int i = 0; i < kPerVec; ++i) w.elem[i] = acc[q * kPerVec + i];
-      yv[q] = w.vec;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < KC; ++j) y[j * nrows + row] = acc[j];
-  }
+  for (int i = 0; i < KC; ++i) ys[i * kRowsPerPass * KC] = acc[i];
 }
 
 struct RollArgs {
@@ -142,36 +134,30 @@ struct RollArgs {
   void* y;
   int64_t tp;
   int k;
-  int64_t xp_len;
   void* stream;
 };
 
-template <typename T, int KC, bool kRowMajor>
+template <typename T, int KC>
 int go_roll(const RollArgs& a) {
-  const int64_t blocks = a.tp * kBlocksPerTile;
-  wjd_spmm_roll_kernel<T, KC, kRowMajor>
-      <<<static_cast<unsigned>(blocks), kThreads, 0,
+  const int64_t blocks = a.tp * (kTile / kRollThreads);
+  wjd_spmm_roll_kernel<T, KC>
+      <<<static_cast<unsigned>(blocks), kRollThreads, 0,
          static_cast<cudaStream_t>(a.stream)>>>(
           static_cast<const T*>(a.data), static_cast<const int32_t*>(a.brow),
           static_cast<const int32_t*>(a.diag_u), static_cast<const T*>(a.xp),
-          static_cast<T*>(a.y), a.k, a.xp_len, a.tp * kTile);
+          static_cast<T*>(a.y), a.k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int KC>
-int roll_by_layout(const RollArgs& a, int row_major) {
-  return row_major ? go_roll<T, KC, true>(a) : go_roll<T, KC, false>(a);
-}
-
 template <typename T>
-int launch_roll(const RollArgs& a, int kc, int row_major) {
-  if (a.tp <= 0 || a.k <= 0 || a.xp_len <= 0 ||
-      a.tp * kBlocksPerTile > 0x7fffffffLL)
+int launch_roll(const RollArgs& a, int kc) {
+  if (a.tp <= 0 || a.k <= 0 ||
+      a.tp * (kTile / kRollThreads) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (kc) {
-    case 4: return roll_by_layout<T, 4>(a, row_major);
-    case 8: return roll_by_layout<T, 8>(a, row_major);
-    case 16: return roll_by_layout<T, 16>(a, row_major);
+    case 4: return go_roll<T, 4>(a);
+    case 8: return go_roll<T, 8>(a);
+    case 16: return go_roll<T, 16>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -269,29 +255,26 @@ int launch_gather(const CompactArgs& a, int coff_bytes, int kc) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
-// after the launch: 0 on success.
-//
-// Roll: xp holds kc columns of padded X and y kc columns of Tp*1024 rows,
-// both row-major (rows, kc) when row_major is set, else planes (kc, rows).
+// after the launch: 0 on success. xp holds kc columns of padded X and y kc
+// columns, both row-major (rows, kc).
+// Roll: the slot planes; y has tp*1024 rows.
 // Gather: the compact slice form (values, offsets of coff_bytes 2 or 4 each,
-// slice_ptr of nslices + 1 and xbase of nslices int64 entries); xp and y are
-// row-major, y of nslices*32 rows.
+// slice_ptr of nslices + 1 and xbase of nslices int64 entries); y has
+// nslices*32 rows.
 extern "C" {
 
 int wjd_spmm_roll_f64(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k, int kc,
-                      int row_major, int64_t xp_len, void* stream) {
-  return launch_roll<double>(
-      RollArgs{data, brow, diag_u, xp, y, tp, k, xp_len, stream}, kc,
-      row_major);
+                      void* stream) {
+  return launch_roll<double>(RollArgs{data, brow, diag_u, xp, y, tp, k, stream},
+                             kc);
 }
 
 int wjd_spmm_roll_f32(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k, int kc,
-                      int row_major, int64_t xp_len, void* stream) {
-  return launch_roll<float>(
-      RollArgs{data, brow, diag_u, xp, y, tp, k, xp_len, stream}, kc,
-      row_major);
+                      void* stream) {
+  return launch_roll<float>(RollArgs{data, brow, diag_u, xp, y, tp, k, stream},
+                            kc);
 }
 
 int wjd_spmm_gather_f64(const void* cval, const void* coff, int coff_bytes,

@@ -1,8 +1,7 @@
 // WJD single-RHS SpMV with per-step x windows, for NVIDIA Hopper (sm_90a).
 //
-// One templated kernel over the value type and the column mode replaces the
-// three Pallas kernels of the JAX package that leave x in device memory and
-// copy one (win_rows, 128) window of it per grid step:
+// Replaces the three Pallas kernels of the JAX package that leave x in
+// device memory and copy one (win_rows, 128) window of it per grid step:
 //
 //   wjd_spmv_win_gather_f32  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_hbm
 //   wjd_spmv_win_roll_f32    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_hbm
@@ -10,22 +9,48 @@
 //
 // Semantics: those of the direct kernels (csrc/spmv_wjd.cu), with x read
 // only through the window of the tile's grid step. Step i = t / group owns
-// rows [win_base[i], win_base[i] + win_rows) of padded x; element
+// rows [win_base[i], win_base[i] + win_rows) of padded x.
+//
+// Roll mode (wjd_slots_win_kernel) walks the slot planes: element
 // (t, k, s, l) multiplies
 //   xw[(brow[t,k] - win_base[i] + s) * 128 + l + u],  xw = xp + win_base[i]*128.
 // The host checks, when the plan is built, that every such offset lies in
 // [0, win_rows*128) and that the last window ends inside xp
 // (formats/wjd.py:_check_windows), so the kernel reads without bounds checks.
+// Bound: bytes, as for the direct roll kernels: the slot values are streamed
+// once and x is small beside them. A roll operator's window is large (1048
+// rows, 0.5 MB, at 5.8M rows of a 7-point stencil in f32), more than a
+// block's 227 KB of shared memory, and its loads are contiguous anyway, so
+// this kernel leaves the copy that the TPU kernels make to the cache.
 //
-// Bound: bytes, as for the direct kernels: slot values (+ offsets in gather
-// mode) are streamed once; x is small beside them. What the TPU kernels do
-// with a double-buffered copy into on-chip memory, this kernel leaves to the
-// cache: x at these sizes (tens of MB) fits Hopper's 50 MB L2, and a whole
-// step window (0.1 to 0.5 MB) does not fit a block's 227 KB of shared
-// memory. A per-block, per-slot staging of the 1024+win elements a slot
-// touches, with TMA (cp.async.bulk + mbarrier), is the redesign to try next
-// and to measure against this direct form; the window-relative addressing
-// and the host check are what it needs.
+// Gather mode (wjd_compact_win_kernel) reads the plan's window-relative
+// compact slice form (formats/wjd.py:compact_slices): slices of 32 rows,
+// rank-major, each entry a value and an offset into its step's window. Its
+// first version walked the padded slot planes (6x the nonzeros at 15 a row)
+// and lost 2.3x to a CSR product. Now:
+//   * one block owns one grid step and reads x from xp + win_base[step]*128;
+//   * one warp a slice and one thread a row, as in the direct compact
+//     kernel: values and offsets are streamed coalesced (ld.global.cs), x is
+//     gathered through the cache. A slice is about 21 ranks wide, so a warp
+//     takes its ranks 8 at a time and sends the loads of the ragged last
+//     batch off together too, under a predicate: a remainder loop would pay
+//     a memory latency for each;
+//   * a row's terms are added in ascending slot order, so its sum is bit for
+//     bit the direct compact kernel's;
+//   * the host checks that every offset lies in [0, win_rows*128) and every
+//     window inside xp (formats/wjd.py:_check_compact_windows).
+// Bound: bytes. The kernel streams 6 bytes a stored element in f32. On the
+// H100 at 4.2M rows it takes 216 to 226 us for bytes that take 160 us at the
+// card's rate. A scattered operator's window is small (216 rows, 110,592
+// bytes in f32, at 4.2M rows and a band of +-8192) and fits a block's shared
+// memory; copying it there first (cp.async.bulk and an mbarrier) was tried
+// and bought 1 to 2 %, less than one card differs from the next, so it was
+// not kept: the streaming sets the pace, not the gather, and what a layout
+// could still save is its padding (1.43 stored elements a nonzero).
+// Blocks of 1024 threads held to 32 registers, so that two fit an SM, were
+// the fastest shape tried; walking a warp's slices as one stream of ranks,
+// with a single ragged batch a warp, gave the same time for twice the
+// registers and was not kept.
 // Element offsets are 64-bit.
 
 #include <cstdint>
@@ -37,12 +62,11 @@ constexpr int kTile = 1024;                       // rows per tile
 constexpr int kThreads = 256;                     // rows per block
 constexpr int kBlocksPerTile = kTile / kThreads;
 
-template <typename T, typename U, bool kRoll>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 wjd_slots_win_kernel(const T* __restrict__ data,
                      const int32_t* __restrict__ brow,
                      const int32_t* __restrict__ diag_u,
-                     const U* __restrict__ uloc,
                      const int32_t* __restrict__ win_base,
                      const T* __restrict__ xp, T* __restrict__ y, int K,
                      int group) {
@@ -59,12 +83,7 @@ wjd_slots_win_kernel(const T* __restrict__ data,
   for (int k = 0; k < K; ++k) {
     const int64_t slot = slot0 + k;
     const int64_t e = slot * kTile + r;
-    int u;
-    if constexpr (kRoll) {
-      u = __ldg(diag_u + slot);
-    } else {
-      u = static_cast<int>(__ldg(uloc + e));
-    }
+    const int u = __ldg(diag_u + slot);
     const int64_t xi =
         (static_cast<int64_t>(__ldg(brow + slot) - wb) + s) * 128 + l + u;
     acc += __ldg(data + e) * __ldg(xw + xi);
@@ -72,59 +91,127 @@ wjd_slots_win_kernel(const T* __restrict__ data,
   y[t * kTile + r] = acc;
 }
 
-template <typename T, typename U, bool kRoll>
+template <typename T>
 int launch(const void* data, const void* brow, const void* diag_u,
-           const void* uloc, const void* win_base, const void* xp, void* y,
-           int64_t tp, int k, int group, int win_rows, void* stream) {
+           const void* win_base, const void* xp, void* y, int64_t tp, int k,
+           int group, int win_rows, void* stream) {
   if (tp <= 0 || k <= 0 || group <= 0 || win_rows <= 0 || tp % group)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = tp * kBlocksPerTile;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  wjd_slots_win_kernel<T, U, kRoll>
+  wjd_slots_win_kernel<T>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(data), static_cast<const int32_t*>(brow),
-          static_cast<const int32_t*>(diag_u), static_cast<const U*>(uloc),
+          static_cast<const int32_t*>(diag_u),
           static_cast<const int32_t*>(win_base), static_cast<const T*>(xp),
           static_cast<T*>(y), k, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- gather mode: the window-relative compact form ----
+
+constexpr int kSlice = 32;                 // rows per compact slice
+constexpr int kWinThreads = 1024;          // 32 warps walk a step's slices
+constexpr int kWinMinBlocks = 2;           // blocks an SM should hold
+constexpr int kUnroll = 8;                 // ranks in flight a thread
+static_assert(kWinThreads % kSlice == 0, "a block holds whole warps");
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kWinThreads, kWinMinBlocks)
+wjd_compact_win_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
+                       const int64_t* __restrict__ slice_ptr,
+                       const int32_t* __restrict__ win_base,
+                       const T* __restrict__ xp, T* __restrict__ y,
+                       int slices_per_step) {
+  const int64_t step = blockIdx.x;
+  const T* __restrict__ xw =
+      xp + static_cast<int64_t>(__ldg(win_base + step)) * 128;
+
+  const int lane = threadIdx.x % kSlice;
+  const int64_t slice0 = step * slices_per_step;
+  for (int i = threadIdx.x / kSlice; i < slices_per_step;
+       i += kWinThreads / kSlice) {
+    const int64_t slice = slice0 + i;
+    const int64_t end = __ldg(slice_ptr + slice + 1);
+    T acc = T(0);
+    // kUnroll ranks at a time, the ragged last batch too: its loads go off
+    // together under a predicate (uniform over the warp), not one after the
+    // other as in a remainder loop
+    for (int64_t p = __ldg(slice_ptr + slice) + lane; p < end;
+         p += kUnroll * kSlice) {
+      T v[kUnroll];
+      int o[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const int64_t q = p + j * kSlice;
+        v[j] = q < end ? __ldcs(cval + q) : T(0);
+        o[j] = q < end ? static_cast<int>(__ldcs(coff + q)) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (p + j * kSlice < end) acc += v[j] * __ldg(xw + o[j]);
+      }
+    }
+    y[slice * kSlice + lane] = acc;
+  }
+}
+
+template <typename T, typename O>
+int launch_compact_win(const void* cval, const void* coff,
+                       const void* slice_ptr, const void* win_base,
+                       const void* xp, void* y, int64_t nsteps,
+                       int slices_per_step, void* stream) {
+  if (nsteps <= 0 || nsteps > 0x7fffffffLL || slices_per_step <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wjd_compact_win_kernel<T, O>
+      <<<static_cast<unsigned>(nsteps), kWinThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(cval), static_cast<const O*>(coff),
+          static_cast<const int64_t*>(slice_ptr),
+          static_cast<const int32_t*>(win_base), static_cast<const T*>(xp),
+          static_cast<T*>(y), slices_per_step);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
-// after the launch: 0 on success.
+// after the launch: 0 on success. The gather entry point takes the
+// window-relative compact slice form: values, offsets of coff_bytes (2 or 4)
+// each, slice_ptr (nsteps*slices_per_step + 1, int64), win_base (nsteps,
+// int32); y has nsteps*slices_per_step*32 rows.
 extern "C" {
 
 int wjd_spmv_win_roll_f64(const void* data, const void* brow,
                           const void* diag_u, const void* win_base,
                           const void* xp, void* y, int64_t tp, int k,
                           int group, int win_rows, void* stream) {
-  return launch<double, uint8_t, true>(data, brow, diag_u, nullptr, win_base,
-                                       xp, y, tp, k, group, win_rows, stream);
+  return launch<double>(data, brow, diag_u, win_base, xp, y, tp, k, group,
+                        win_rows, stream);
 }
 
 int wjd_spmv_win_roll_f32(const void* data, const void* brow,
                           const void* diag_u, const void* win_base,
                           const void* xp, void* y, int64_t tp, int k,
                           int group, int win_rows, void* stream) {
-  return launch<float, uint8_t, true>(data, brow, diag_u, nullptr, win_base,
-                                      xp, y, tp, k, group, win_rows, stream);
+  return launch<float>(data, brow, diag_u, win_base, xp, y, tp, k, group,
+                       win_rows, stream);
 }
 
-int wjd_spmv_win_gather_f32(const void* data, const void* brow,
-                            const void* uloc, int uloc_bytes,
+int wjd_spmv_win_gather_f32(const void* cval, const void* coff,
+                            int coff_bytes, const void* slice_ptr,
                             const void* win_base, const void* xp, void* y,
-                            int64_t tp, int k, int group, int win_rows,
+                            int64_t nsteps, int slices_per_step,
                             void* stream) {
-  if (uloc_bytes == 1)
-    return launch<float, uint8_t, false>(data, brow, nullptr, uloc, win_base,
-                                         xp, y, tp, k, group, win_rows,
-                                         stream);
-  if (uloc_bytes == 2)
-    return launch<float, int16_t, false>(data, brow, nullptr, uloc, win_base,
-                                         xp, y, tp, k, group, win_rows,
-                                         stream);
+  if (coff_bytes == 2)
+    return launch_compact_win<float, uint16_t>(
+        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
+        stream);
+  if (coff_bytes == 4)
+    return launch_compact_win<float, int32_t>(
+        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
+        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

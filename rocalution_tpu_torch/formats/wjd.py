@@ -37,11 +37,16 @@ what the direct gather kernels read on the card:
   padded with value 0 and offset 0;
 * an entry's column is its offset into padded x relative to the slice's
   base ``xbase[slice]``, as uint16 where every slice spans fewer than
-  65,536 elements of x, else as int32 for the whole plan.
+  65,536 elements of x, else as int32 for the whole plan;
+* a plan that the windowed gather kernel serves (`windowed`) takes the
+  **window-relative** form (``window_relative``): the base of every slice
+  of grid step i is the step's window, ``win_base[i]*128``, so an offset
+  lies in [0, win_rows*128) and fits 2 bytes, and the kernel needs no
+  ``xbase``. The direct kernels read the same
+  form through ``xbase``.
 
 The padded ``data`` / ``uloc`` planes of a gather-mode plan stay on the
-host only (None on the WJD) unless the WJD lives on the CPU or the plan is
-in the windowed regime in f32, whose kernel reads them.
+host only (None on the WJD) unless the WJD lives on the CPU.
 
 The planner's cost constants were fitted on a TPU v5e and are kept for
 plan parity; refitting them on the H100 is later, measured work.
@@ -100,6 +105,8 @@ class WJD(MatrixBase):
     coff: Optional[torch.Tensor] = None       # (total,) uint16 | int32
     slice_ptr: Optional[torch.Tensor] = None  # (Tp*32 + 1,) int64
     xbase: Optional[torch.Tensor] = None      # (Tp*32,) int64
+    # xbase[slice] is win_base[step of the slice]*128 (module docstring)
+    window_relative: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -518,12 +525,14 @@ def _check_windows(plan: dict, reach) -> None:
             f"{int(wb.max()) + win_rows} pass xp_len={plan['xp_len']}")
 
 
-def compact_slices(plan: dict) -> dict:
+def compact_slices(plan: dict, window_relative: bool = False) -> dict:
     """Row-compacted slice form of a gather-mode plan (module docstring),
     from the plan's padded planes: numpy arrays ``cval``, ``coff``,
     ``slice_ptr``, ``xbase``. The real entries are the nonzero slot values
     (a stored zero adds nothing to a product and is dropped, as in
-    `to_csr`). Vectorised: one pass over the planes, then work per entry."""
+    `to_csr`). With `window_relative` the base of a slice is its grid
+    step's window, win_base[step]*128, instead of the slice's lowest
+    offset. Vectorised: one pass over the planes, then work per entry."""
     brow = np.asarray(plan["brow"], np.int64)
     Tp, K = brow.shape
     data = np.asarray(plan["data"]).reshape(Tp, K, TILE)
@@ -551,18 +560,26 @@ def compact_slices(plan: dict) -> dict:
     BIG = np.int64(1) << 62
     off = np.full(total, BIG, np.int64)
     off[pos] = xoff
-    xbase = np.zeros(len(width), np.int64)
-    full = width > 0
-    if total:
-        xbase[full] = np.minimum.reduceat(off, slice_ptr[:-1][full])
+    if window_relative:
+        xbase = np.repeat(np.asarray(plan["win_base"], np.int64) * 128,
+                          int(plan["group"]) * (TILE // SLICE))
+    else:
+        xbase = np.zeros(len(width), np.int64)
+        full = width > 0
+        if total:
+            xbase[full] = np.minimum.reduceat(off, slice_ptr[:-1][full])
     off -= np.repeat(xbase, width.astype(np.int64) * SLICE)
     off[cval == 0] = 0                                 # padding of short rows
+    if int(off.min(initial=0)) < 0:       # before the cast to an unsigned type
+        raise ValueError(f"bad WJD plan: a compact load lies "
+                         f"{-int(off.min())} elements below its step window")
     span = int(off.max(initial=0))
     if span >= 1 << 31:
         raise ValueError(f"bad WJD plan: a slice spans {span} elements of x")
     return dict(cval=cval,
                 coff=off.astype(np.uint16 if span < 1 << 16 else np.int32),
-                slice_ptr=slice_ptr, xbase=xbase)
+                slice_ptr=slice_ptr, xbase=xbase,
+                window_relative=bool(window_relative))
 
 
 def compact_entries(cval, coff, slice_ptr, xbase):
@@ -591,11 +608,41 @@ def _check_compact_reach(compact: dict, xp_len: int) -> None:
                          f"x[{deepest}], outside xp_len={xp_len}")
 
 
+def _check_compact_windows(compact: dict, plan: dict) -> None:
+    """The compact twin of `_check_windows`, for a window-relative form:
+    raise ValueError unless the base of every slice of grid step i is
+    win_base[i]*128, every offset lies in [0, win_rows*128), and the last
+    window ends inside padded x. The windowed gather kernel reads x from
+    its step's window without bounds checks."""
+    wb = np.asarray(plan["win_base"], np.int64)
+    win_rows, group = int(plan["win_rows"]), int(plan["group"])
+    per_step = group * (TILE // SLICE)
+    xbase, off = compact["xbase"], compact["coff"]
+    if (group <= 0 or xbase.shape != (len(wb) * per_step,)
+            or not np.array_equal(xbase, np.repeat(wb * 128, per_step))):
+        raise ValueError("bad WJD plan: the compact slice bases are not the "
+                         f"step windows of {len(wb)} steps of {group} tiles")
+    lo, hi = int(off.min(initial=0)), int(off.max(initial=0))
+    if win_rows <= 0 or lo < 0 or hi >= win_rows * 128:
+        raise ValueError(f"bad WJD plan: compact loads {lo} .. {hi} leave "
+                         f"the step window of win_rows={win_rows}")
+    if len(wb) and (int(wb.min()) < 0 or (int(wb.max()) + win_rows) * 128
+                    > int(plan["xp_len"])):
+        raise ValueError(
+            f"bad WJD plan: window rows {int(wb.min())} .. "
+            f"{int(wb.max()) + win_rows} pass xp_len={plan['xp_len']}")
+
+
 def windowed(A: WJD, dtype: torch.dtype) -> bool:
     """Does an x of `dtype` take the windowed kernels on this plan? The JAX
     package's rule for which kernel runs: the padded x plane passes
     X_VMEM_BUDGET and the plan carries windows; gather mode has a windowed
-    kernel in f32 only, so gather-mode f64 stays on the direct kernel."""
+    kernel in f32 only, so gather-mode f64 stays on the direct kernel. For
+    a gather plan the rule was applied when its compact form was built
+    (`_plan_to_wjd`), and `window_relative` holds the answer: the layout
+    and the kernel that reads it cannot disagree."""
+    if A.kernel_mode == "gather":
+        return A.window_relative
     return _window_regime(A.win_base is not None, A.xp_len, A.kernel_mode,
                           dtype.itemsize, dtype == torch.float32)
 
@@ -610,8 +657,9 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     """Materialize a host plan as a WJD on ``device`` (one upload per
     array), after checking that no slot load leaves padded x or, where
     the plan has per-step windows, its step's window. A gather-mode plan
-    is compacted here (`compact_slices`); its padded planes go along only
-    to the CPU or where the windowed f32 kernel will read them."""
+    is compacted here (`compact_slices`), window-relative where the
+    windowed gather kernel will serve it; its padded planes go along only
+    to the CPU."""
     if np.asarray(plan["brow"]).size:
         reach = _slot_reach(plan)
         _check_x_reach(plan, reach)
@@ -619,13 +667,15 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
             _check_windows(plan, reach)
     skip = ()
     if plan["kernel_mode"] == "gather":
-        compact = compact_slices(plan)
-        _check_compact_reach(compact, plan["xp_len"])
-        plan = {**plan, **compact}
         vdt = np.asarray(plan["data"]).dtype
-        if torch.device(device).type != "cpu" and not _window_regime(
-                plan.get("win_base") is not None, int(plan["xp_len"]),
-                "gather", vdt.itemsize, vdt == np.float32):
+        compact = compact_slices(plan, window_relative=_window_regime(
+            plan.get("win_base") is not None, int(plan["xp_len"]), "gather",
+            vdt.itemsize, vdt == np.float32))
+        _check_compact_reach(compact, plan["xp_len"])
+        if compact["window_relative"]:
+            _check_compact_windows(compact, plan)
+        plan = {**plan, **compact}
+        if torch.device(device).type != "cpu":
             skip = ("data", "uloc")
 
     def put(name, dt=None):
@@ -639,6 +689,7 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         coff=put("coff"),
         slice_ptr=put("slice_ptr", np.int64),
         xbase=put("xbase", np.int64),
+        window_relative=bool(plan.get("window_relative", False)),
         data=put("data"),
         uloc=put("uloc"),
         brow=put("brow", np.int32),

@@ -9,10 +9,12 @@ kernels are templated CUDA kernels in three sources here:
   (formats/wjd.py:`compact_slices`), the two roll ones its slot planes;
 * ``csrc/spmv_wjd_win.cu``: the slot product with x read through per-step
   windows (`_kernel_hbm`, `_kernel_roll_hbm`, `_kernel_roll_ff_hbm`), for
-  plans in the windowed regime (formats/wjd.py:`windowed`);
+  plans in the windowed regime (formats/wjd.py:`windowed`); the gather
+  entry point reads the window-relative compact form
+  (`WJD.window_relative`);
 * ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
-  16 columns a launch; gather mode on the compact form, roll mode on the
-  slot planes.
+  16 columns a launch, lanes across the columns; gather mode on the
+  compact form, roll mode on the slot planes.
 
 See those files for the designs. The wrappers pad x, launch on the current
 stream, add the COO spill and the DIA part, and trim to n.
@@ -46,27 +48,28 @@ MRHS_MAX_COLS = 16
 _MRHS_WIDTHS = (4, 8, 16)
 
 _DTYPE_TAG = {torch.float64: "f64", torch.float32: "f32"}
-_ULOC_DTYPES = (torch.uint8, torch.int16)
 _COFF_DTYPES = (torch.uint16, torch.int32)
 _P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (library, prefix of the launch counters, argument types after the plan's
-# operands) per family of slot kernels; the plan's operands are data, brow,
-# then diag_u (roll) or uloc, uloc_bytes (gather)
+# operands) per family of roll kernels, which read the slot planes
 _FAMILIES = {
     # xp, y, Tp, K, stream
     "spmv": ("spmv_wjd", "", [_P, _P, _I64, _INT, _P]),
     # win_base, xp, y, Tp, K, group, win_rows, stream
     "spmv_win": ("spmv_wjd_win", "win_",
                  [_P, _P, _P, _I64, _INT, _INT, _INT, _P]),
-    # xp, y, Tp, K, kc, row_major, xp_len, stream
-    "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _INT, _INT, _I64, _P]),
+    # xp, y, Tp, K, kc, stream
+    "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _INT, _P]),
 }
-_SLOT_ARGS = {"roll": [_P, _P, _P], "gather": [_P, _P, _P, _INT]}
+_SLOT_ARGS = [_P, _P, _P]           # data, brow, diag_u
 # the compact gather kernels: cval, coff, coff_bytes, slice_ptr, xbase, then
 # xp, y, nslices, stream (spmv) or xp, y, nslices, kc, stream (spmm)
 _COMPACT_ARGS = [_P, _P, _INT, _P, _P]
 _COMPACT_TAILS = {"spmv": ("spmv_wjd", "", [_P, _P, _I64, _P]),
                   "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _P])}
+# wjd_spmv_win_gather_f32: cval, coff, coff_bytes, slice_ptr, win_base, xp,
+# y, nsteps, slices a step, stream
+_WIN_COMPACT_ARGS = [_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _P]
 
 
 def build() -> None:
@@ -91,16 +94,11 @@ def _call(lib: str, name: str, argtypes, counter: str, xp: torch.Tensor,
 
 
 def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
-    """Launch slot kernel wjd_<family>_<mode>_<tag> on the plan's planes."""
+    """Launch roll kernel wjd_<family>_roll_<tag> on the plan's planes."""
     lib, prefix, tail = _FAMILIES[family]
-    if A.kernel_mode == "roll":
-        slot = (A.data.data_ptr(), A.brow.data_ptr(), A.diag_u.data_ptr())
-    else:
-        slot = (A.data.data_ptr(), A.brow.data_ptr(), A.uloc.data_ptr(),
-                A.uloc.element_size())
-    _call(lib, f"wjd_{family}_{A.kernel_mode}_{tag}",
-          _SLOT_ARGS[A.kernel_mode] + tail,
-          f"{prefix}{A.kernel_mode}_{tag}", xp, *slot, *args)
+    _call(lib, f"wjd_{family}_roll_{tag}", _SLOT_ARGS + tail,
+          f"{prefix}roll_{tag}", xp, A.data.data_ptr(), A.brow.data_ptr(),
+          A.diag_u.data_ptr(), *args)
 
 
 def _launch_compact(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
@@ -173,18 +171,45 @@ def slots_plain_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     return _per_column(slots_plain, A, xp)
 
 
-def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Plain product over the compact slice form of a gather-mode plan:
-    element p of slice i multiplies xp[xbase[i] + coff[p]] and adds to row
-    i*32 + p % 32 (every slice starts at a multiple of 32). Gather,
+def _compact_product(A: WJD, xp: torch.Tensor,
+                     base: torch.Tensor) -> torch.Tensor:
+    """Element p of slice i multiplies xp[base[i] + coff[p]] and adds to
+    row i*32 + p % 32 (every slice starts at a multiple of 32). Gather,
     multiply, sum by row; returns (Tp, 8, 128)."""
-    nslices = A.xbase.numel()
+    nslices = base.numel()
     sl = torch.repeat_interleave(
         torch.arange(nslices, device=xp.device), A.slice_ptr.diff())
     lane = torch.arange(A.cval.numel(), device=xp.device) % SLICE
-    prod = A.cval * xp[A.xbase[sl] + A.coff.long()]
+    prod = A.cval * xp[base[sl] + A.coff.long()]
     y = xp.new_zeros(nslices * SLICE).index_add_(0, sl * SLICE + lane, prod)
     return y.view(-1, 8, 128)
+
+
+def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain product over the compact slice form of a gather-mode plan,
+    each slice's offsets taken from its base xbase[i]."""
+    return _compact_product(A, xp, A.xbase)
+
+
+def _check_window_relative(A: WJD) -> None:
+    if not A.window_relative:
+        raise ValueError("the windowed gather product takes the window-"
+                         "relative compact form (a plan built in the "
+                         "windowed regime)")
+
+
+def slots_plain_compact_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain product over the window-relative compact form with x read
+    through the per-step windows: the offsets of the slices of step i are
+    taken from win_base[i]*128. Raises IndexError if a load leaves its
+    window of win_rows rows, ValueError for a per-slice compact form. The
+    same terms in the same order as `slots_plain_compact`."""
+    _check_window_relative(A)
+    if A.coff.numel() and int(A.coff.int().max()) >= A.win_rows * 128:
+        raise IndexError(f"a compact load leaves its x window of "
+                         f"{A.win_rows} rows")
+    return _compact_product(A, xp, A.win_base.long().repeat_interleave(
+        A.group * (TILE // SLICE)) * 128)
 
 
 def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
@@ -219,14 +244,10 @@ def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
         if A.data is None:
             raise ValueError("this WJD carries no slot planes on "
                              f"{A.device}: its compact form serves it")
+        if A.kernel_mode != "roll":
+            raise ValueError("the slot-plane kernels take a roll-mode WJD, "
+                             f"not {A.kernel_mode!r}")
         operands = [A.data, A.brow, A.diag_u]
-        if A.kernel_mode == "gather":
-            if A.uloc is None or A.uloc.dtype not in _ULOC_DTYPES:
-                raise TypeError("gather-mode WJD needs a uint8/int16 uloc "
-                                "plane")
-            operands.append(A.uloc)
-        elif A.kernel_mode != "roll":
-            raise ValueError(f"unknown WJD kernel mode {A.kernel_mode!r}")
         if A.brow.dtype != torch.int32 or A.diag_u.dtype != torch.int32:
             raise TypeError("WJD brow/diag_u must be int32")
         Tp, K = A.brow.shape
@@ -260,8 +281,11 @@ def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 
 def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
-    """Slot product through the windowed kernel (CUDA tensors only)."""
-    tag = _check_operands(A, xp)
+    """Slot product through the windowed kernel (CUDA tensors only): over
+    the slot planes in roll mode, over the window-relative compact form in
+    gather mode (f32 only)."""
+    compact = A.kernel_mode == "gather"
+    tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
         raise ValueError(f"padded x must have shape ({A.xp_len},)")
     Tp, K = A.brow.shape
@@ -271,40 +295,40 @@ def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
             or tuple(wb.shape) != (Tp // A.group,) or A.win_rows <= 0):
         raise ValueError("windowed WJD kernel needs an int32 win_base of "
                          "one entry per step of `group` tiles")
-    if A.kernel_mode == "gather" and tag != "f32":
-        raise TypeError("gather mode has a windowed kernel in f32 only")
     y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
-    _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
-            y.data_ptr(), Tp, K, A.group, A.win_rows)
+    if not compact:
+        _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
+                y.data_ptr(), Tp, K, A.group, A.win_rows)
+        return y
+    if tag != "f32":
+        raise TypeError("gather mode has a windowed kernel in f32 only")
+    _check_window_relative(A)
+    _call("spmv_wjd_win", "wjd_spmv_win_gather_f32", _WIN_COMPACT_ARGS,
+          "win_gather_f32", xp, A.cval.data_ptr(), A.coff.data_ptr(),
+          A.coff.element_size(), A.slice_ptr.data_ptr(), wb.data_ptr(),
+          xp.data_ptr(), y.data_ptr(), wb.numel(),
+          A.group * (TILE // SLICE))
     return y
 
 
-def slots_kernel_mrhs(A: WJD, xp: torch.Tensor,
-                      row_major: bool = True) -> torch.Tensor:
+def slots_kernel_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Blocked-RHS slot product through the SpMM kernel (CUDA tensors
-    only). xp is padded X of 4, 8 or 16 columns: (xp_len, kc) and the
-    result (Tp*1024, kc) when `row_major`, which is what `wjd_spmm` uses;
-    else planes (kc, xp_len) and (kc, Tp*1024), the reference's layout,
-    which the roll kernel keeps so that both can be timed on the same
-    operands (PERF.md). Gather mode reads the compact form, row-major."""
+    only). xp is padded X of 4, 8 or 16 columns, row-major (xp_len, kc);
+    the result is (Tp*1024, kc). Roll mode reads the slot planes, gather
+    mode the compact form."""
     compact = A.kernel_mode == "gather"
-    if compact and not row_major:
-        raise ValueError("the gather SpMM kernel takes row-major X only")
     tag = _check_operands(A, xp, compact)
-    kc = xp.shape[1 if row_major else 0] if xp.dim() == 2 else 0
-    want = (A.xp_len, kc) if row_major else (kc, A.xp_len)
-    if kc not in _MRHS_WIDTHS or tuple(xp.shape) != want:
+    kc = xp.shape[1] if xp.dim() == 2 else 0
+    if kc not in _MRHS_WIDTHS or tuple(xp.shape) != (A.xp_len, kc):
         raise ValueError(f"padded X must have {_MRHS_WIDTHS} columns of "
                          f"{A.xp_len} rows, got {tuple(xp.shape)}")
     Tp, K = A.brow.shape
-    shape = (Tp * TILE, kc) if row_major else (kc, Tp * TILE)
-    y = torch.empty(shape, dtype=xp.dtype, device=xp.device)
+    y = torch.empty((Tp * TILE, kc), dtype=xp.dtype, device=xp.device)
     if compact:
         _launch_compact("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(),
                         A.xbase.numel(), kc)
     else:
-        _launch("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K, kc,
-                int(row_major), A.xp_len)
+        _launch("spmm", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K, kc)
     return y
 
 
@@ -360,10 +384,15 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
     launches a kernel: the windowed one where the plan is in the windowed
-    regime for x's dtype, else the direct one (on the compact form in
-    gather mode). A CPU tensor takes the plain version of the same."""
+    regime (formats/wjd.py:`windowed`), else the direct one (gather mode: on the compact form, in
+    both). A CPU tensor takes the plain version of the same."""
+    gather = A.kernel_mode == "gather"
     if windowed(A, x.dtype):
-        slots = slots_kernel_windowed if x.is_cuda else slots_plain_windowed
+        if x.is_cuda:
+            slots = slots_kernel_windowed
+        else:
+            slots = (slots_plain_compact_windowed if gather
+                     else slots_plain_windowed)
     elif x.is_cuda:
         slots = slots_kernel
     else:
@@ -396,14 +425,15 @@ def wjd_reference(A: WJD, x: torch.Tensor) -> torch.Tensor:
                        else slots_plain_compact_mrhs)
 
 
-def slot_bytes(A: WJD, compact: bool = False) -> int:
+def slot_bytes(A: WJD, compact: bool = False,
+               through_windows: bool = False) -> int:
     """Operand bytes one kernel call streams from the plan: slot values
-    (+ uloc in gather mode) with brow and diag_u, or the compact form's
-    values, offsets, slice_ptr and xbase."""
+    with brow and diag_u (roll mode), or the compact form's values,
+    offsets, slice_ptr and xbase (the windowed gather kernel reads
+    win_base in place of xbase)."""
     if compact:
+        base = A.win_base if through_windows else A.xbase
         return sum(t.numel() * t.element_size()
-                   for t in (A.cval, A.coff, A.slice_ptr, A.xbase))
+                   for t in (A.cval, A.coff, A.slice_ptr, base))
     Tp, K = A.brow.shape
-    per = A.dtype.itemsize + (A.uloc.element_size()
-                              if A.kernel_mode == "gather" else 0)
-    return Tp * K * (TILE * per + 2 * 4)
+    return Tp * K * (TILE * A.dtype.itemsize + 2 * 4)

@@ -102,32 +102,26 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("row_major", [True, False])
+@pytest.mark.parametrize("kc", [4, 8, 16])
 @pytest.mark.parametrize("key", sorted(CASES))
-def test_spmm_kernel_matches_plain_version(cuda_device, key, row_major):
+def test_spmm_kernel_matches_plain_version(cuda_device, key, kc):
     make, kw = CASES[key]
     W = from_csr(make(), device=cuda_device, **kw)
-    gather = W.kernel_mode == "gather"
-    plain = (kernels.slots_plain_compact_mrhs if gather
+    plain = (kernels.slots_plain_compact_mrhs if W.kernel_mode == "gather"
              else kernels.slots_plain_mrhs)
-    for kc in (4, 8, 16):
-        X = _x(W.shape[1] * kc, W.dtype, cuda_device).view(-1, kc)
-        xp = kernels.pad_x(W, X, kc)
-        want = plain(W, xp)
-        before = kernels.launches[f"spmm_{key}"]
-        if row_major:
-            got = kernels.slots_kernel_mrhs(W, xp)
-        elif gather:                 # the compact kernel has no planes form
-            with pytest.raises(ValueError):
-                kernels.slots_kernel_mrhs(W, xp.t().contiguous(),
-                                          row_major=False)
-            continue
-        else:
-            got = kernels.slots_kernel_mrhs(W, xp.t().contiguous(),
-                                            row_major=False).t()
-        torch.cuda.synchronize()
-        assert kernels.launches[f"spmm_{key}"] == before + 1
-        assert _rel(got, want) <= TOL[W.dtype], (key, kc)
+    X = _x(W.shape[1] * kc, W.dtype, cuda_device).view(-1, kc)
+    xp = kernels.pad_x(W, X, kc)
+    before = kernels.launches[f"spmm_{key}"]
+    got = kernels.slots_kernel_mrhs(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"spmm_{key}"] == before + 1
+    assert _rel(got, plain(W, xp)) <= TOL[W.dtype], (key, kc)
+    # a column is summed in the single-RHS kernel's order, whatever kc is
+    for j in range(kc):
+        y_j = kernels.slots_kernel(W, xp[:, j].contiguous()).reshape(-1)
+        assert torch.equal(got[:, j], y_j), (key, kc, j)
+    with pytest.raises(ValueError):             # X in planes: (kc, xp_len)
+        kernels.slots_kernel_mrhs(W, xp.t().contiguous())
 
 
 def _wide_rows(dtype):
@@ -197,20 +191,31 @@ def test_compact_kernels_match_compact_and_padded_plain(cuda_device, name,
         assert torch.equal(Y[:, 0], y0), kc
 
 
-def test_gather_plan_on_the_card_carries_no_slot_planes(cuda_device):
-    """Outside the windowed f32 regime a gather-mode plan is served from
-    its compact form alone; the reference and `to_csr` follow it."""
-    A = rt.random_banded_spd(3000, bandwidth=512)
-    W = from_csr(A, device=cuda_device)
+@pytest.mark.parametrize("regime", ["resident", "windowed"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_gather_plan_on_the_card_carries_no_slot_planes(cuda_device, dtype,
+                                                        regime, monkeypatch):
+    """In every regime a gather-mode plan on the card is served from its
+    compact form alone, window-relative where the windowed kernel serves
+    it (f32 in the windowed regime); the reference and `to_csr` follow."""
+    if regime == "windowed":
+        _windowed_regime(monkeypatch)
+    A = rt.random_banded_spd(3000, bandwidth=512, dtype=dtype)
+    W = from_csr(A, device=cuda_device, split_dia=False)
+    relative = regime == "windowed" and dtype == np.float32
     assert W.data is None and W.uloc is None and W.cval.is_cuda
-    assert W.dtype == torch.float64 and W.device.type == "cuda"
+    assert W.dtype == rt.config.torch_dtype(dtype)
+    assert W.device.type == "cuda"
+    assert W.window_relative is relative is windowed(W, W.dtype)
     B = rt.convert(W, "CSR")
     for a, b in zip(A.numpy_triplet(), B.numpy_triplet()):
         np.testing.assert_array_equal(a, b)
-    x = _x(3000, torch.float64, cuda_device)
-    assert _rel(kernels.wjd_reference(W, x), rt.spmv(B, x)) <= 1e-12
-    with pytest.raises(ValueError):             # no planes for this kernel
-        kernels.slots_kernel_windowed(W, kernels.pad_x(W, x))
+    x = _x(3000, W.dtype, cuda_device)
+    assert _rel(kernels.wjd_reference(W, x), rt.spmv(B, x)) <= TOL[W.dtype]
+    assert _rel(kernels.wjd_spmv(W, x), rt.spmv(B, x)) <= TOL[W.dtype]
+    if not relative:     # the windowed kernel takes no per-slice form
+        with pytest.raises((ValueError, TypeError)):
+            kernels.slots_kernel_windowed(W, kernels.pad_x(W, x))
 
 
 @pytest.mark.parametrize("k", [1, 5, 16, 20])
@@ -233,28 +238,92 @@ def test_spmv_of_2d_x_goes_through_the_spmm_kernel(cuda_device, key, k):
     assert _rel(Y, singles) <= TOL[W.dtype]
 
 
+def _windowed_regime(monkeypatch, group=1):
+    """A small budget puts small operators in the windowed regime; `group`
+    tiles per step give them several windows."""
+    monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1024)
+    monkeypatch.setattr(wjd_mod, "_auto_group", lambda K: group)
+    monkeypatch.setattr(wjd_mod, "_auto_group_windowed", lambda K: group)
+
+
 @pytest.mark.parametrize("key", ["roll_f64", "roll_f32", "gather_f32"])
 def test_windowed_kernel_matches_plain_version(cuda_device, key, monkeypatch):
-    # a small budget puts these operators in the windowed regime; one tile
-    # per step gives them two or three windows
-    monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1024)
-    monkeypatch.setattr(wjd_mod, "_auto_group", lambda K: 1)
-    monkeypatch.setattr(wjd_mod, "_auto_group_windowed", lambda K: 1)
+    _windowed_regime(monkeypatch)
     make, kw = CASES[key]
     W = from_csr(make(), device=cuda_device, **kw)
     assert windowed(W, W.dtype) and len(W.win_base) > 1
+    plain = (kernels.slots_plain_compact_windowed
+             if W.kernel_mode == "gather" else kernels.slots_plain_windowed)
     x = _x(W.shape[1], W.dtype, cuda_device)
     xp = kernels.pad_x(W, x)
     before = kernels.launches[f"win_{key}"]
     got = kernels.slots_kernel_windowed(W, xp)
     torch.cuda.synchronize()
     assert kernels.launches[f"win_{key}"] == before + 1
-    assert _rel(got, kernels.slots_plain_windowed(W, xp)) \
-        <= TOL[W.dtype]
+    assert _rel(got, plain(W, xp)) <= TOL[W.dtype]
     # the entry point takes the windowed kernel by itself
     y = kernels.wjd_spmv(W, x)
     assert kernels.launches[f"win_{key}"] == before + 2
     assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[W.dtype]
+
+
+def _banded_with_an_empty_tile(dtype):
+    """3,000 rows of a banded operator whose rows 1024 .. 2047 are empty:
+    with one tile a step, a step all of whose slices are empty."""
+    A = rt.random_banded_spd(3000, bandwidth=512, dtype=dtype, device="cpu")
+    S = sp.csr_matrix(A.numpy_triplet(), shape=A.shape).tolil()
+    S[1024:2048] = 0
+    S = S.tocsr()
+    S.sort_indices()
+    return rt.CSR.from_arrays(S.data.astype(dtype),
+                              S.indices.astype(np.int32),
+                              S.indptr.astype(np.int32), S.shape,
+                              device="cpu")
+
+
+WINDOWED_GATHER = {
+    # name: (make on the CPU, planner kwargs, tiles a step, offset dtype)
+    "band_group1": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"), {}, 1,
+        torch.uint16),
+    "band_group2_spill": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"),
+        {"max_slots": 4}, 2, torch.uint16),
+    "empty_step": (lambda: _banded_with_an_empty_tile(np.float32), {}, 1,
+                   torch.uint16),
+    "wide_i32": (lambda: _wide_rows(np.float32), {"split_dia": False}, 1,
+                 torch.int32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOWED_GATHER))
+def test_windowed_gather_kernel(cuda_device, name, monkeypatch):
+    """The windowed gather kernel against the plain version over the
+    window-relative compact form and against the padded slot product; bit
+    for bit the direct compact kernel's sums."""
+    make, kw, group, off_dtype = WINDOWED_GATHER[name]
+    _windowed_regime(monkeypatch, group)
+    W = _on_card(from_csr(make(), kernel_mode="gather", **kw))
+    assert W.window_relative and windowed(W, W.dtype)
+    assert W.group == group and W.coff.dtype == off_dtype
+    if name == "empty_step":
+        per_step = 32 * group
+        assert (W.slice_ptr[per_step:2 * per_step + 1].diff() == 0).all()
+    tol = TOL[W.dtype]
+    x = _x(W.shape[1], W.dtype, cuda_device)
+    xp = kernels.pad_x(W, x)
+    want = kernels.slots_plain_compact_windowed(W, xp)
+    direct = kernels.slots_kernel(W, xp)
+    before = kernels.launches["win_gather_f32"]
+    got = kernels.slots_kernel_windowed(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches["win_gather_f32"] == before + 1
+    assert _rel(got, want) <= tol
+    assert _rel(got, kernels.slots_plain(W, xp)) <= tol
+    assert torch.equal(got, direct)
+    # the entry point takes the windowed kernel by itself
+    y = kernels.wjd_spmv(W, x)
+    assert _rel(y, kernels.wjd_reference(W, x)) <= tol
 
 
 def test_refused_launches_raise(cuda_device, monkeypatch):

@@ -201,6 +201,25 @@ def test_spmm_equals_single_applies_whatever_the_chunk(mode, monkeypatch):
     assert torch.equal(kernels.wjd_spmm(W, X), Y)
 
 
+@pytest.mark.parametrize("kc", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_roll_slot_product_per_chunk_width(dtype, kc):
+    """What the roll SpMM kernel is held against on the card, at each width
+    it is built for: `slots_plain_mrhs` on a padded row-major X of kc
+    columns is `slots_plain` of each column, bit for bit (the kernel sums a
+    column in the single-RHS kernel's order, whatever kc is)."""
+    W = from_csr(rt.laplacian_3d(8, dtype=dtype), split_dia=False)
+    assert W.kernel_mode == "roll"
+    X = torch.from_numpy(_X(W.shape[1], kc, dtype))
+    xp = kernels.pad_x(W, X, kc)
+    assert xp.shape == (W.xp_len, kc) and xp.is_contiguous()
+    Y = kernels.slots_plain_mrhs(W, xp)
+    assert Y.shape == (W.brow.shape[0] * 1024, kc)
+    for j in range(kc):
+        assert torch.equal(
+            Y[:, j], kernels.slots_plain(W, xp[:, j].contiguous()).reshape(-1))
+
+
 def test_wjd_spmm_rejects_mismatched_x():
     W = from_csr(rt.laplacian_2d(10))
     with pytest.raises(ValueError):

@@ -269,7 +269,8 @@ def test_compact_form_that_leaves_x_is_refused(monkeypatch):
         with pytest.raises(ValueError, match="xp_len"):
             _check_compact_reach(bad, plan["xp_len"])
         uploads = []
-        monkeypatch.setattr(wjd_mod, "compact_slices", lambda plan_: bad)
+        monkeypatch.setattr(wjd_mod, "compact_slices",
+                            lambda plan_, **kw: bad)
         monkeypatch.setattr(wjd_mod, "to_device",
                             lambda *a, **k: uploads.append(a))
         with pytest.raises(ValueError, match="xp_len"):
