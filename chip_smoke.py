@@ -18,6 +18,12 @@ each went through its kernels:
        f32): the windowed kernels, then CG + Jacobi through them
   J    ELL, HYB and BCSR operands routed through a WJD plan; COO, MCSR and
        DENSE plain applies
+  K    CG + SA-AMG: the bench's 65k row (f64 host setup, f32 hierarchy,
+       6 iterations); laplacian_3d(128) f64, 2,097,152 rows (5 levels):
+       setup, how each level operator and transfer is served, the solve
+       through the WJD kernels and the same solve plain, each transfer's
+       kernel held against its plain version, a profile of one V-cycle and
+       one CG iteration; then its f32 conversion and the same again
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -36,6 +42,7 @@ are the card as nvidia-smi reports it, the per-kernel JSON, and the result
 JSON.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -60,6 +67,13 @@ WIN_LAP32_N = 180           # laplacian_3d(180) f32: 5,832,000 rows
 WIN_RAND_N = 1 << 22        # random_banded_spd(1<<22) f32: 4,194,304 rows
 MRHS_COLS = (16, 20)        # phase H: one full chunk, and one that crosses
 HOST_CALLS = 200            # phase G: applies timed on the host clock
+AMG_65K_N = 256             # phase K: laplacian_2d(256), 65,536 rows
+AMG_3D_N = 128              # phase K: laplacian_3d(128), 2,097,152 rows
+AMG_3D_LEVELS = 5           # BENCH_r05.json amg_setup_2m_levels
+AMG_CHECK_EVERY = 4         # phase K: CG steps between host reads of the
+                            # stop flag; each masked step costs a V-cycle
+AMG_PROF_CYCLES = (20, 5)   # phase K: V-cycles timed unprofiled, profiled
+AMG_PROF_ITERS = (8, 4)     # phase K: CG iterations timed the same ways
 # published peaks of one H100 SXM: HBM bytes/s, and flop/s outside the
 # tensor cores by value type
 PEAK_BYTES = 3.35e12
@@ -402,45 +416,52 @@ def phase_solve(rt, kernels, phase, tag, A, key, rel_tol, err_tol):
         f"{s / it * 1e3:.3f} ms/iter")
 
 
-def phase_g(rt, ops):
-    """Where one CG + Jacobi iteration's time goes: the host clock over
-    PROF_WALL_ITERS unprofiled iterations against the device time that
-    torch.profiler records over PROF_ITERS. Only CUDA rows of
-    key_averages() are summed (CPU-op rows carry the same device time
-    again); one stream, so busy = the sum of their self device times."""
+def device_profile(run, n_wall, n_prof):
+    """Where the time of `run(k)` (k repetitions of one step) goes: the
+    host clock over n_wall unprofiled steps against the device time that
+    torch.profiler records over n_prof. Only CUDA rows of key_averages()
+    are summed (CPU-op rows carry the same device time again); one stream,
+    so busy = the sum of their self device times. Returns a line of text:
+    wall and busy ms a step, device ops a step, idle share, top ops."""
     from torch.profiler import ProfilerActivity, profile
 
+    run(min(n_wall, n_prof))                                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n_wall)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n_wall * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(n_prof)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in rows) / n_prof
+    if not busy_us > 0:
+        raise RuntimeError("the profiler saw no device time")
+    n_ops = sum(e.count for e in rows) / n_prof
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    top_s = "; ".join(
+        f"{e.self_device_time_total / n_prof:.1f} us x"
+        f"{e.count / n_prof:.1f} {e.key[:48]}" for e in top)
+    return (f"wall {wall_ms:.3f} ms ({n_wall} unprofiled) | device busy "
+            f"{busy_us / 1e3:.3f} ms, {n_ops:.1f} device ops (CUDA rows, "
+            f"{n_prof} profiled) | idle share "
+            f"{1 - busy_us / 1e3 / wall_ms:.3f} | top: {top_s}")
+
+
+def phase_g(rt, ops):
+    """Where one CG + Jacobi iteration's time goes (`device_profile`)."""
     for tag, (A, b, auto) in ops.items():
         rt.set_auto_wjd(auto)
         try:
             M = rt.jacobi(A)
-            rt.cg(A, b, M=M, rel_tol=1e-8, max_iter=PROF_ITERS)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rt.cg(A, b, M=M, rel_tol=1e-30, max_iter=PROF_WALL_ITERS)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / PROF_WALL_ITERS * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                rt.cg(A, b, M=M, rel_tol=1e-30, max_iter=PROF_ITERS)
-                torch.cuda.synchronize()
+            text = device_profile(
+                lambda k: rt.cg(A, b, M=M, rel_tol=1e-30, max_iter=k),
+                PROF_WALL_ITERS, PROF_ITERS)
         finally:
             rt.set_auto_wjd(None)
-        rows = [e for e in prof.key_averages()
-                if e.device_type.name == "CUDA"]
-        busy_us = sum(e.self_device_time_total for e in rows) / PROF_ITERS
-        if not busy_us > 0:
-            raise RuntimeError(f"G {tag}: the profiler saw no device time")
-        n_ops = sum(e.count for e in rows) / PROF_ITERS
-        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-        top_s = "; ".join(
-            f"{e.self_device_time_total / PROF_ITERS:.1f} us x"
-            f"{e.count / PROF_ITERS:.1f} {e.key[:48]}" for e in top)
-        say("G", f"{tag}: wall {wall_ms:.3f} ms/iter ({PROF_WALL_ITERS} "
-            f"iters unprofiled) | device busy {busy_us / 1e3:.3f} ms/iter, "
-            f"{n_ops:.1f} device ops/iter (CUDA rows, {PROF_ITERS} iters) | "
-            f"idle share {1 - busy_us / 1e3 / wall_ms:.3f} | per iter: "
-            f"{top_s}")
+        say("G", f"{tag}, per iteration: {text}")
 
 
 def host_us(fn, arg):
@@ -701,6 +722,297 @@ def phase_j(rt, kernels, totals, lap, rand):
     say("J", f"DENSE 1024 x 1024 with 3 columns agrees with CSR: {rel:.1e}")
 
 
+class PlanTimer:
+    """Seconds spent in the WJD planner and in the compact builder while
+    the context is open (the module functions are wrapped, then put back)."""
+
+    NAMES = ("csr_to_wjd_plan", "compact_slices")
+
+    def __enter__(self):
+        import rocalution_tpu_torch.formats.wjd as wjd
+
+        self.mod, self.saved, self.s = wjd, {}, dict.fromkeys(self.NAMES, 0.0)
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(wjd, name)
+            setattr(wjd, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[name] += time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def served_by(M):
+    """How the card serves one level operator or transfer: its format, the
+    entry point, and the plan's padding and spill."""
+    from rocalution_tpu_torch.formats.wjd import windowed
+
+    W = getattr(M, "_wjd_cache", None)
+    if W is None:
+        return f"{type(M).__name__}, plain torch ops"
+    key = (f"{'win_' if windowed(W, W.dtype) else ''}{W.kernel_mode}_"
+           f"{TAG[W.dtype]}")
+    Tp, K = W.brow.shape
+    text = (f"CSR nnz={M.nnz} -> WJD {W.kernel_mode} (Tp,K)=({Tp},{K}) "
+            f"wlog={W.wlog}, {KERNELS[key][0]}, padding "
+            f"{W.padding_ratio:.2f}x")
+    if W.dia_offsets:
+        text += f", {len(W.dia_offsets)} diagonals split off to plain DIA"
+    spill = W.spill_row.numel()
+    if W.kernel_mode == "gather":
+        text += (f", compact form {W.cval.numel() / max(W.nnz - spill, 1):.3f}"
+                 f" elements a slot entry, {W.coff.element_size()}-byte "
+                 "offsets")
+    return text + f", spill {spill} ({spill / max(M.nnz, 1):.3f} of nnz)"
+
+
+def amg_cg(rt, A0, b, M, rel_tol, err_tol, tag):
+    """rt.cg with the cycle as preconditioner, AMG_CHECK_EVERY steps a host
+    read. Returns iterations, error, seconds, and the masked steps (each a
+    whole V-cycle whose result is thrown away)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = rt.cg(A0, b, M=M, rel_tol=rel_tol, max_iter=200,
+                    check_every=AMG_CHECK_EVERY)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    it, err = check_solve(tag, x, info, 2, err_tol)
+    return it, err, s, -(-it // AMG_CHECK_EVERY) * AMG_CHECK_EVERY - it
+
+
+def plain_hierarchy(rt, mg, h, A0_plain):
+    """The same hierarchy with fresh copies of every CSR (no device copy,
+    no plan) over a plain fine operator, for a solve with auto_wjd off."""
+    from rocalution_tpu_torch.formats.base import get_host
+
+    def fresh(M):
+        if not isinstance(M, rt.CSR):
+            return M
+        return rt.CSR.from_arrays(*(get_host(M, f) for f in (
+            "data", "indices", "indptr")), M.shape, device="cpu")
+
+    lv = h.levels
+    return mg.build_hierarchy([A0_plain] + [fresh(v.A) for v in lv[1:]],
+                              [fresh(v.P) for v in lv[:-1]],
+                              [fresh(v.R) for v in lv[:-1]])
+
+
+def unsplit_closure(rt, mg, h, A0):
+    """A cycle closure over fresh copies of h's CSRs, placed on the card and
+    each planned with split_dia=False: no diagonal leaves a level's or a
+    transfer's slot plan for a plain DIA part."""
+    hp = mg.place_hierarchy(plain_hierarchy(rt, mg, h, A0))
+    for lv in hp.levels:
+        for M in (lv.A, lv.P, lv.R):
+            if isinstance(M, rt.CSR):
+                rt.attach_wjd(M, split_dia=False)
+    return mg.cycle_closure(hp)
+
+
+def hold_transfers(rt, kernels, h, tag):
+    """Every transfer's kernel against its plain version on that operand
+    (the plan's plain product, and the plain CSR apply), at full size; the
+    finest P and R timed beside both and the library call."""
+    lines = []
+    for l, lv in enumerate(h.levels[:-1]):
+        for name, M in (("P", lv.P), ("R", lv.R)):
+            W = M._wjd_cache
+            tol = TOL[W.dtype]
+            x = random_x(rt, M, W.dtype)
+            y = kernels.wjd_spmv(W, x)
+            _, rel = rel_err(y, kernels.wjd_reference(W, x),
+                             f"K {tag} {name}{l}", tol)
+            plain_csr = rt.CSR.from_arrays(*M.numpy_triplet(), M.shape)
+            _, rel_c = rel_err(y, rt.spmv(plain_csr, x),
+                               f"K {tag} {name}{l} vs plain CSR", tol)
+            text = f"{name}{l} {rel:.1e}/{rel_c:.1e}"
+            if l == 0:
+                k_ms = median_ms(lambda: kernels.wjd_spmv(W, x))
+                p_ms = median_ms(lambda: kernels.wjd_reference(W, x))
+                lib_ms = library_ms(plain_csr, x)
+                text += (f" (apply {k_ms * 1e3:.1f} us, plain "
+                         f"{p_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} "
+                         "us)")
+            lines.append(text)
+            del plain_csr
+    say("K", f"{tag}: each transfer's kernel vs the plan's plain product / "
+        f"the plain CSR apply, max|dy|/max|y| (tol {tol:g}): "
+        + "; ".join(lines))
+
+
+def amg_levels(mg, h, tag):
+    M = mg.cycle_closure(h)
+    for l, lv in enumerate(M.hierarchy.levels):
+        for name, Op in (("A", lv.A), ("P", lv.P), ("R", lv.R)):
+            if Op is not None:
+                if Op.device.type != "cuda":
+                    raise RuntimeError(f"K {tag}: {name}{l} on {Op.device}")
+                say("K", f"{tag} {name}{l} {tuple(Op.shape)}: "
+                    f"{served_by(Op)}")
+        if lv.smooth is not None and lv.smooth.inv_d.device.type != "cuda":
+            raise RuntimeError(f"K {tag}: smoother {l} off the card")
+    return M
+
+
+class Plain:
+    """auto_wjd off while open: the plain path's solves neither attach nor
+    launch."""
+
+    def __init__(self, rt):
+        self.rt = rt
+
+    def __enter__(self):
+        self.rt.set_auto_wjd(False)
+
+    def __exit__(self, *exc):
+        self.rt.set_auto_wjd(None)
+
+
+def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
+              A0_plain, unsplit=False):
+    """One hierarchy on the card: closure (placement, plans, coarse QR),
+    how each operator is served, CG through the kernels, the same solve
+    plain (fresh plan-free copies of the levels, auto_wjd off), both timed
+    in turns, the transfers held against their plain versions, and where
+    the time of a V-cycle and of a CG iteration goes on both paths. With
+    `unsplit`, a third path plans every CSR with split_dia=False and is
+    solved, timed and profiled beside the other two."""
+    with PlanTimer() as pt:
+        t0 = time.perf_counter()
+        M = amg_levels(mg, h, tag)
+        closure_s = time.perf_counter() - t0
+    with Counted(kernels, totals) as c:
+        it, err, _, masked = amg_cg(rt, A0, b, M, rel_tol, err_tol, tag)
+    used = {k: n for k, n in c.got.items() if n}
+    if not used:
+        raise RuntimeError(f"K {tag}: the solve launched no kernel")
+    paths = {"WJD": (A0, M, contextlib.nullcontext())}
+    with Plain(rt), Counted(kernels, {}) as cp:
+        Mp = mg.cycle_closure(plain_hierarchy(rt, mg, h, A0_plain))
+        it_p = amg_cg(rt, A0_plain, b, Mp, rel_tol, err_tol,
+                      f"{tag} plain")[0]
+    paths["plain"] = (A0_plain, Mp, Plain(rt))
+    if any(cp.got.values()):
+        raise RuntimeError(f"K {tag} plain: launched {cp.got}")
+    if abs(it_p - it) > 1:
+        raise RuntimeError(f"K {tag}: WJD {it} vs plain {it_p} iterations")
+    turns = ("WJD", "plain", "plain", "WJD")
+    unsplit_text = ""
+    if unsplit:
+        with Counted(kernels, {}) as cu:
+            Mu = unsplit_closure(rt, mg, h, A0)
+            it_u = amg_cg(rt, A0, b, Mu, rel_tol, err_tol,
+                          f"{tag} WJD unsplit")[0]
+        if abs(it_u - it) > 1:
+            raise RuntimeError(f"K {tag}: WJD {it} vs unsplit {it_u} "
+                               "iterations")
+        paths["WJD unsplit"] = (A0, Mu, contextlib.nullcontext())
+        turns = ("WJD", "plain", "WJD unsplit", "WJD unsplit", "plain",
+                 "WJD")
+        split = sum(len(M._wjd_cache.dia_offsets)
+                    for lv in Mu.hierarchy.levels for M in (lv.A, lv.P, lv.R)
+                    if isinstance(M, rt.CSR))
+        unsplit_text = (f" | WJD unsplit (split_dia=False on every CSR, "
+                        f"{split} diagonals split off): {it_u} iters, "
+                        f"launches { {k: n for k, n in cu.got.items() if n} }")
+    ms = []
+    for path in turns:                                      # in turns
+        A_, M_, ctx = paths[path]
+        with ctx:
+            got = amg_cg(rt, A_, b, M_, rel_tol, err_tol, f"{tag} {path}")
+        ms.append(f"{path} {got[2] / got[0] * 1e3:.3f}")
+    say("K", f"{tag}: cycle closure {closure_s:.1f} s (WJD planning "
+        f"{pt.s['csr_to_wjd_plan']:.1f} s, compacting "
+        f"{pt.s['compact_slices']:.1f} s) | CG+SA-AMG rel_tol {rel_tol:g}: "
+        f"{it} iters (status 2, |x-1|/|1|={err:.2e}), {masked} masked steps "
+        f"(check_every={AMG_CHECK_EVERY}), launches {used} | plain {it_p} "
+        f"iters, no launch{unsplit_text} | ms/iter in turns "
+        + ", ".join(ms))
+    hold_transfers(rt, kernels, M.hierarchy, tag)
+    for path, (A_, M_, ctx) in paths.items():
+        def cycles(k):
+            for _ in range(k):
+                M_(b)
+
+        with ctx:
+            text = device_profile(cycles, *AMG_PROF_CYCLES)
+            say("K", f"{tag} {path}, one V-cycle: {text}")
+            text = device_profile(
+                lambda k: rt.cg(A_, b, M=M_, rel_tol=1e-30, max_iter=k,
+                                check_every=k), *AMG_PROF_ITERS)
+            say("K", f"{tag} {path}, one CG iteration: {text}")
+
+
+def phase_k(rt, kernels, totals):
+    from rocalution_tpu_torch import native
+    from rocalution_tpu_torch.solvers import multigrid as mg
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("K: the native setup layer did not build")
+    say("K", f"native setup layer available ({native.library_path().name}, "
+        f"built or loaded in {time.perf_counter() - t0:.1f} s)")
+
+    # K1: bench.py's cg_saamg row
+    A = rt.laplacian_2d(AMG_65K_N)
+    t0 = time.perf_counter()
+    h32 = mg.convert_hierarchy(mg.amg_hierarchy(A, "sa", coarse_size=300),
+                               dtype=np.float32)
+    setup_s = time.perf_counter() - t0
+    M = mg.cycle_closure(h32)
+    b = rhs_of_ones(A).float()
+    with Counted(kernels, totals) as c:
+        it, err, _, masked = amg_cg(rt, h32.levels[0].A, b, M, 1e-6, 1e-3,
+                                    "K1")
+    s = amg_cg(rt, h32.levels[0].A, b, M, 1e-6, 1e-3, "K1 re-solve")[2]
+    if it != 6:
+        raise RuntimeError(f"K1: {it} iterations, the bench records 6")
+    say("K", f"K1 laplacian_2d({AMG_65K_N}) SA f64 setup + f32 conversion "
+        f"{setup_s:.2f} s, levels {h32.operator_sizes()} "
+        f"{[type(lv.A).__name__ for lv in h32.levels]} | CG rel_tol 1e-6: "
+        f"{it} iters (|x-1|/|1|={err:.2e}), {s / it * 1e3:.3f} ms/iter, "
+        f"{masked} masked steps | launches "
+        f"{ {k: n for k, n in c.got.items() if n} }")
+    del A, h32, M, b
+
+    # K2: the bench's amg_setup_2m operator in f64
+    t0 = time.perf_counter()
+    A = rt.laplacian_3d(AMG_3D_N)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = mg.amg_hierarchy(A, "sa", coarse_size=300)
+    setup_s = time.perf_counter() - t0
+    if h.num_levels != AMG_3D_LEVELS:
+        raise RuntimeError(f"K2: {h.num_levels} levels, the bench records "
+                           f"{AMG_3D_LEVELS}")
+    say("K", f"K2 laplacian_3d({AMG_3D_N}) f64 n={A.shape[0]}: generate "
+        f"{gen_s:.1f} s, SA setup {setup_s:.1f} s, {h.num_levels} levels "
+        f"{h.operator_sizes()}")
+    b = rhs_of_ones(A)
+    A_plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+    amg_phase(rt, kernels, mg, totals, h, A, b, "K2 f64", 1e-8, 1e-6,
+              A_plain)
+    torch.cuda.empty_cache()
+
+    # K3: its f32 conversion (the fine level becomes DIA)
+    t0 = time.perf_counter()
+    h32 = mg.convert_hierarchy(h, dtype=np.float32)
+    say("K", f"K3 f32 conversion {time.perf_counter() - t0:.1f} s, levels "
+        f"{[type(lv.A).__name__ for lv in h32.levels]}")
+    del h, A_plain
+    amg_phase(rt, kernels, mg, totals, h32, h32.levels[0].A, b.float(),
+              "K3 f32", 1e-6, 1e-3, h32.levels[0].A, unsplit=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
@@ -761,6 +1073,9 @@ def main():
         rt, kernels, totals, f"random_banded_spd({WIN_RAND_N}) f32",
         lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
         "win_gather_f32", {}, 1e-5, 1e-3))
+    torch.cuda.empty_cache()
+
+    phase_k(rt, kernels, totals)
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

@@ -33,7 +33,10 @@ class CSR(MatrixBase):
     @staticmethod
     def from_arrays(data, indices, indptr, shape, device=None) -> "CSR":
         """Build from a host CSR triplet; computes row_ids once on the host
-        and keeps numpy copies of every array (see base.set_host_cache)."""
+        and keeps numpy copies of every array (see base.set_host_cache).
+        ``device="cpu"`` makes a host-resident matrix: the counterpart of
+        the JAX package's ``device=False`` for setup intermediates (AMG
+        levels before a cycle closure places them on the card)."""
         device = resolve_device(device)
         nrow = int(shape[0])
         data = np.asarray(data)
@@ -86,6 +89,15 @@ class CSR(MatrixBase):
         out = self.data.new_zeros(self.shape)
         return out.index_put_((self.row_ids.long(), self.indices.long()),
                               self.data, accumulate=True)
+
+    def transpose_host(self) -> "CSR":
+        """Host-side transpose (setup phase; analog LocalMatrix::Transpose),
+        on this matrix's device."""
+        rows = get_host(self, "row_ids")
+        cols = get_host(self, "indices")
+        vals = get_host(self, "data")
+        return CSR.from_coo(cols, rows, vals, (self.shape[1], self.shape[0]),
+                            device=self.device)
 
     def numpy_triplet(self):
         """Host CSR triplet from the host cache (no device read)."""

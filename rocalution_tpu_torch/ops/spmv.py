@@ -28,7 +28,7 @@ import torch
 from ..config import get_config
 from ..formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
                        MatrixBase)
-from ..formats.base import expand
+from ..formats.base import expand, get_host, set_host_cache
 from ..formats.dia import dia_apply
 from .cuda.spmv_wjd import wjd_spmm, wjd_spmv
 
@@ -174,13 +174,18 @@ def maybe_attach_wjd(A):
     """Auto-attach WJD to a host-built CSR, and to ELL, HYB and BCSR
     operands by way of CSR, when the fast path applies (config.auto_wjd;
     default = when the operand's tensors live on CUDA). The analog of the
-    reference running csrmv analysis in Solver::Build. A conversion that
-    fails raises: there is no quiet way around the kernel."""
+    reference running csrmv analysis in Solver::Build. A CSR whose values
+    were computed on the device (no host arrays) has its triplet read back
+    once, here. A conversion that fails raises: there is no quiet way
+    around the kernel."""
     if not isinstance(A, (CSR,) + _WJD_ROUTED):
         return A
     if getattr(A, "_wjd_cache", None) is not None or not _auto_wjd_on(A):
         return A
     if isinstance(A, CSR):
+        if "data" not in (getattr(A, "_host_cache", None) or {}):
+            set_host_cache(A, **{k: get_host(A, k) for k in
+                                 ("data", "indices", "indptr", "row_ids")})
         if _wjd_eligible(A):
             attach_wjd(A)
         return A

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats import CSR, DIA
+from ..formats import CSR, DENSE, DIA, MCSR, to_csr
 from ..formats.base import get_host, to_device
 
 
@@ -24,13 +24,34 @@ def jacobi(A):
     return apply
 
 
+def extract_diagonal(A) -> torch.Tensor:
+    """Diagonal of A on A's device (reference: LocalMatrix::
+    ExtractDiagonal), from the device arrays: for operands without a host
+    cache, such as coarse operators rebuilt on the device."""
+    if isinstance(A, DENSE):
+        return torch.diagonal(A.data)
+    if isinstance(A, MCSR):
+        return A.diag
+    if isinstance(A, DIA):
+        if 0 in A.offsets:
+            return A.data[A.offsets.index(0), : min(A.shape)]
+        return A.data.new_zeros(min(A.shape))
+    csr = A if isinstance(A, CSR) else to_csr(A)
+    is_diag = csr.row_ids == csr.indices
+    diag = csr.data.new_zeros(min(csr.shape))
+    return diag.index_add_(0, torch.where(is_diag, csr.row_ids, 0).long(),
+                           torch.where(is_diag, csr.data, 0))
+
+
 def inverse_diagonal(A) -> torch.Tensor:
-    """Inverse diagonal on A's device, built from the host cache."""
+    """Inverse diagonal on A's device: from the host cache where there is
+    one (setup reads no device memory), else from the device arrays.
+    Zero diagonal entries map to 1."""
     host = inverse_diagonal_host(A)
-    if host is None:
-        raise TypeError(f"inverse_diagonal: unsupported operand "
-                        f"{type(A).__name__} (needs a host-built CSR or DIA)")
-    return to_device(host, A.device)
+    if host is not None:
+        return to_device(host, A.device)
+    d = extract_diagonal(A)
+    return torch.where(d != 0, 1.0 / torch.where(d == 0, 1.0, d), 1.0)
 
 
 def inverse_diagonal_host(A):

@@ -1,5 +1,5 @@
 """Import hygiene of the port: it never imports jax or rocalution_tpu, and
-importing it builds no kernel."""
+importing it builds no kernel and no native library."""
 
 import ast
 import pathlib
@@ -19,9 +19,14 @@ from rocalution_tpu_torch import interop
 from rocalution_tpu_torch.formats import (bcsr, convert, coo, dense, ell, hyb,
                                           mcsr)
 from rocalution_tpu_torch.ops.cuda import _build, spmv_wjd
+from rocalution_tpu_torch import native
+from rocalution_tpu_torch.ops import spgemm
+from rocalution_tpu_torch.solvers import direct, fixed_point, multigrid
+from rocalution_tpu_torch.solvers.multigrid import aggregation, base
+from rocalution_tpu_torch.utils import log
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 print(bad)
-sys.exit(1 if bad or _build._loaded else 0)
+sys.exit(1 if bad or _build._loaded or native._TRIED else 0)
 """
 
 
@@ -51,8 +56,20 @@ def test_public_surface():
                  "wjd_spmm", "attach_wjd", "spmv", "cg", "jacobi",
                  "IterationControl", "SolverInfo", "laplacian_2d",
                  "laplacian_3d", "random_banded_spd", "info", "sync",
-                 "set_default_device"):
+                 "set_default_device", "fixed_point", "fixed_point_sweeps",
+                 "qr", "qr_factor", "lu", "lu_factor", "inversion"):
         assert hasattr(rt, name), name
+
+
+def test_multigrid_surface():
+    from rocalution_tpu_torch.solvers import multigrid
+
+    for name in ("amg_hierarchy", "amg_precond", "saamg", "uaamg",
+                 "pairwise_amg", "cycle_closure", "convert_hierarchy",
+                 "build_hierarchy", "mg_solve", "rebuild_hierarchy_numeric",
+                 "make_galerkin_plans", "sa_level", "ua_level",
+                 "pairwise_level"):
+        assert hasattr(multigrid, name), name
 
 
 def test_default_device_is_explicit():

@@ -358,3 +358,131 @@ def test_routed_formats_go_through_the_kernel(cuda_device, fmt):
     y = op(x)
     assert kernels.launches["gather_f64"] == before + 1
     assert _rel(y, want) <= TOL[torch.float64]
+
+
+def _transfers(dtype):
+    """P (tall) and R (wide) of the first SA level of laplacian_3d(12),
+    host-resident."""
+    from rocalution_tpu_torch.solvers.multigrid.aggregation import sa_level
+
+    P, R, _ = sa_level(rt.laplacian_3d(12, device="cpu"))
+    out = {}
+    for name, M in (("P", P), ("R", R)):
+        d, i, p = M.numpy_triplet()
+        out[name] = rt.CSR.from_arrays(d.astype(dtype), i, p, M.shape,
+                                       device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("regime", ["direct", "windowed"])
+@pytest.mark.parametrize("mode", ["gather", "roll"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("which", ["P", "R"])
+def test_rectangular_operands_through_each_kernel(cuda_device, which, dtype,
+                                                  mode, regime, monkeypatch):
+    """AMG transfers are tall (P) and wide (R). Each single-RHS entry point
+    serves them, in the windowed regime too (a small x budget), and agrees
+    with the plain CSR apply on the card and with the plain version of the
+    same plan. Gather mode has no windowed f64 kernel: it stays direct."""
+    if regime == "windowed":
+        _windowed_regime(monkeypatch)
+    M = _transfers(dtype)[which]
+    n, m = M.shape
+    W = from_csr(M, device=cuda_device, kernel_mode=mode)
+    tag = "f64" if dtype == np.float64 else "f32"
+    win = regime == "windowed" and (mode == "roll" or tag == "f32")
+    key = f"{'win_' if win else ''}{mode}_{tag}"
+    assert windowed(W, W.dtype) == win
+    x = _x(m, W.dtype, cuda_device)
+    before = kernels.launches[key]
+    y = kernels.wjd_spmv(W, x)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    assert y.shape == (n,)
+    assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[W.dtype]
+    plain = rt.spmv(rt.CSR.from_arrays(*M.numpy_triplet(), M.shape,
+                                       device=cuda_device), x)
+    assert _rel(y, plain) <= TOL[W.dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_cg_saamg_on_cuda_goes_through_the_kernels(cuda_device, dtype):
+    """CG + SA-AMG on the card: the cycle closure places every level,
+    transfer and smoother vector on the card, each CSR gets a WJD plan, the
+    solve launches the kernels, and it takes the iterations of the same
+    solve on the CPU (within 1)."""
+    from rocalution_tpu_torch.solvers.multigrid import (amg_hierarchy,
+                                                        convert_hierarchy,
+                                                        cycle_closure)
+
+    def solve(device):
+        A = rt.laplacian_3d(16, device=device)
+        h = amg_hierarchy(A, "sa", coarse_size=100)
+        if dtype == np.float32:
+            h = convert_hierarchy(h, dtype=dtype)
+        M = cycle_closure(h)
+        A0 = h.levels[0].A
+        d, _, p = A.numpy_triplet()
+        b = torch.from_numpy(np.add.reduceat(d, p[:-1]).astype(dtype))
+        for key in kernels.launches:
+            kernels.launches[key] = 0
+        x, info = rt.cg(A0, b.to(device), M=M, rel_tol=1e-8 if
+                        dtype == np.float64 else 1e-6, max_iter=100,
+                        check_every=4)
+        torch.cuda.synchronize()
+        return M.hierarchy, x, info, dict(kernels.launches)
+
+    h, x, info, got = solve(cuda_device)
+    assert h.num_levels >= 3
+    for lv in h.levels:
+        for M in (lv.A, lv.P, lv.R):
+            if M is None:
+                continue
+            assert M.device.type == "cuda"
+            if isinstance(M, rt.CSR):
+                assert M._wjd_cache is not None
+        if lv.smooth is not None:
+            assert lv.smooth.inv_d.device.type == "cuda"
+    assert int(info.status) == 2
+    assert float((x.double() - 1).abs().max()) < (
+        1e-6 if dtype == np.float64 else 1e-3)
+    tag = "f64" if dtype == np.float64 else "f32"
+    assert got[f"gather_{tag}"] >= int(info.iterations)
+    _, _, info_cpu, _ = solve("cpu")
+    assert abs(int(info.iterations) - int(info_cpu.iterations)) <= 1
+
+
+def test_rebuilt_hierarchy_goes_through_the_kernels(cuda_device):
+    """A hierarchy rebuilt for new values on frozen Galerkin plans computes
+    its coarse levels on the card, with no host arrays. A cycle closure
+    over it still plans every level and transfer, so each SpMV of one
+    V-cycle is a kernel launch, and the cycle agrees with the same cycle
+    on the CPU."""
+    from rocalution_tpu_torch.solvers.multigrid import (
+        amg_hierarchy, cycle_closure, make_galerkin_plans,
+        rebuild_hierarchy_numeric)
+
+    def closure(device):
+        A = rt.laplacian_3d(16, device=device)
+        h = amg_hierarchy(A, "sa", coarse_size=100)
+        return h, cycle_closure(rebuild_hierarchy_numeric(
+            h, A, plans=make_galerkin_plans(h)))
+
+    h, M = closure(cuda_device)
+    assert h.num_levels >= 3
+    for lv in M.hierarchy.levels:
+        for op in (lv.A, lv.P, lv.R):
+            if op is not None:
+                assert op.device.type == "cuda"
+                assert op._wjd_cache is not None
+    b = _x(h.levels[0].A.shape[0], torch.float64, cuda_device)
+    for key in kernels.launches:
+        kernels.launches[key] = 0
+    e = M(b)
+    torch.cuda.synchronize()
+    per_level = h.pre_sweeps + h.post_sweeps + 3   # smooth, res, R, P
+    assert sum(kernels.launches.values()) == \
+        (M.hierarchy.num_levels - 1) * per_level
+    _, M_cpu = closure("cpu")
+    want = M_cpu(b.cpu())
+    assert _rel(e.cpu(), want) <= 1e-10

@@ -175,3 +175,58 @@ def test_empty_matrix_plan():
     assert W.nnz == 0
     y = rt.spmv(W, torch.ones(10, dtype=torch.float32))
     assert torch.equal(y, torch.zeros(10, dtype=torch.float32))
+
+
+@pytest.fixture(scope="module")
+def transfers():
+    """P (tall) and R (wide) of the first SA level of laplacian_3d(12), as
+    host triplets."""
+    from rocalution_tpu_torch.solvers.multigrid.aggregation import sa_level
+
+    before = rt.config.default_device()
+    rt.set_default_device("cpu")
+    P, R, _ = sa_level(GENERATORS["lap3d_12"](rt, np.float64))
+    rt.set_default_device(before)
+    return {"P": P, "R": R}
+
+
+@pytest.mark.parametrize("kernel_mode", ["auto", "gather", "roll"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["P", "R"])
+def test_rectangular_plans_equal_and_apply_like_jax(transfers, which, dtype,
+                                                    kernel_mode):
+    """AMG transfers are rectangular: P is n_fine x n_coarse, R the
+    transpose. Both planners size x, its padding and the windows by the
+    column count; the plans must be equal, and the port's CPU apply must
+    match the product: the JAX package's `wjd_reference` on the same plan
+    for the f64 plan the planner picks (gather mode), a scipy product for
+    the others (each JAX reference call compiles for its shape: that is
+    what costs here)."""
+    import jax.numpy as jnp
+    import scipy.sparse as sp
+
+    from rocalution_tpu.formats.wjd import csr_to_wjd as jax_to_wjd
+    from rocalution_tpu.ops.pallas.spmv_wjd import wjd_reference
+
+    M = transfers[which]
+    d, i, p = M.numpy_triplet()
+    d = d.astype(dtype)
+    n, m = M.shape
+    assert n != m
+    kw = dict(kernel_mode=kernel_mode)
+    pt = torch_plan(d, i, p, M.shape, **kw)
+    _assert_plans_equal(jax_plan(d, i, p, M.shape, cache=False, **kw), pt)
+    x = np.random.default_rng(11).standard_normal(m).astype(dtype)
+    if kernel_mode == "auto":
+        assert pt["kernel_mode"] == "gather"
+    if kernel_mode == "auto" and dtype == np.float64:
+        want = np.asarray(wjd_reference(
+            jax_to_wjd(d, i, p, M.shape, cache=False), jnp.asarray(x)))
+    else:
+        want = sp.csr_matrix((d, i, p), shape=M.shape) @ x
+    W = from_csr(rt.CSR.from_arrays(d, i, p, M.shape), **kw)
+    got = rt.spmv(W, torch.from_numpy(x)).numpy()
+    assert got.shape == (n,)
+    tol = 1e-13 if dtype == np.float64 else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
