@@ -22,8 +22,19 @@ each went through its kernels:
        6 iterations); laplacian_3d(128) f64, 2,097,152 rows (5 levels):
        setup, how each level operator and transfer is served, the solve
        through the WJD kernels and the same solve plain, each transfer's
-       kernel held against its plain version, a profile of one V-cycle and
-       one CG iteration; then its f32 conversion and the same again
+       kernel held against its plain version, a profile of one V-cycle
+       (device, and the host's time by function) and one CG iteration;
+       then its f32 conversion and the same again, with a third path
+       planned by the JAX package's f32 DIA split
+  L    IC(0) and ILU(0) with CG and GMRES(30): bench.py's cg_ic0,
+       gmres_ilu0 (in f32, and in f64) and fem_ilu0 rows at their own
+       sizes, then CG + IC(0) and GMRES(30) + ILU(0) at a million rows in
+       f64; the kernel apply of each row's operator and factors held
+       against its plain versions, then each solve through the kernels
+       and plain, held to its status and error bound, timed in turns
+  M    MixedPrecisionDC: bench.py's mpdc row (3 outer iterations), then
+       laplacian_3d(100) f64: the outer residual through the f64 kernel,
+       the inner CG through the f32 copy's
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -57,6 +68,7 @@ import torch
 
 LAP_N = 100                 # laplacian_3d(100): 1,000,000 rows
 RAND_N = 1 << 20            # random_banded_spd(1<<20): 1,048,576 rows
+J_RAND_N = 1 << 18          # phase J's HYB and BCSR operands: 262,144 rows
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 REPS = 20
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
@@ -74,6 +86,34 @@ AMG_CHECK_EVERY = 4         # phase K: CG steps between host reads of the
                             # stop flag; each masked step costs a V-cycle
 AMG_PROF_CYCLES = (20, 5)   # phase K: V-cycles timed unprofiled, profiled
 AMG_PROF_ITERS = (8, 4)     # phase K: CG iterations timed the same ways
+HOST_TOP = 8                # host_profile: rows shown of each table
+L1_IC_N = 256               # phase L1: bench.py's rows at their own sizes:
+L1_CD_N = 192               # laplacian_2d(256), convection_diffusion_2d(192)
+L1_FEM_N = 120_000          # and fem_2d_unstructured(120_000) f32
+L2_LAP_N = 100              # phase L2: laplacian_3d(100) f64, 1,000,000 rows
+L2_CD_N = 1024              # convection_diffusion_2d(1024) f64, 1,048,576
+L2_CD_STATUS = 4            # its GMRES(30) stops at 600 steps short of 1e-6
+M1_N = 128                  # phase M1: bench.py's mpdc row, laplacian_2d(128)
+M2_N = 100                  # phase M2: laplacian_3d(100) f64
+FACTOR_CHECK_EVERY = 8      # phases L, M: solver steps between host reads
+FACTOR_PROF = (8, 4)        # phases L, M: iterations timed, profiled (a
+                            # solver call of k iterations also applies the
+                            # preconditioner once at its start: the numbers
+                            # a step read (k+1)/k of an iteration's)
+APPLY_REPS = 5              # phase L: preconditioner applies timed
+# phase L1: the iterations both packages take on the CPU (`python
+# tests/test_torch_gmres.py`, also with --dtype=float64 and with
+# --perturb=1e-7 and -1e-7, which move neither): cg_ic0 179, gmres_ilu0 in
+# f64 205. The f32 gmres_ilu0 and fem_ilu0 rows have no such count: on the
+# CPU a 1e-7 scaling of b moves them by tens of iterations in both packages
+L1_WANT = {"cg_ic0": 179, "gmres_ilu0_f64": 205}
+# phase L: a row whose b is not A 1 holds its true relative residual to
+# (factor x the residual its solver reported, or the dtype's floor, if
+# larger): a solve that converged on another operator than A fails it
+RES_BOUND = (10.0, {torch.float32: 1e-5, torch.float64: 1e-10})
+# torch.profiler CPU rows that wait for the device
+SYNC_ROWS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+             "cudaDeviceSynchronize", "cudaMemcpy", "cudaEventSynchronize")
 # published peaks of one H100 SXM: HBM bytes/s, and flop/s outside the
 # tensor cores by value type
 PEAK_BYTES = 3.35e12
@@ -670,21 +710,26 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
                   "library_ms": lib_ms, **b}}
 
 
-def phase_j(rt, kernels, totals, lap, rand):
+def phase_j(rt, kernels, totals, lap):
     """ELL, HYB and BCSR operands on the card go through a WJD plan once a
     solver's `as_operator` has seen them, and agree with the plain CSR
     apply; so do the plain COO and MCSR applies, and DENSE at a small
     size. ELL is shown on the Laplacian: two columns of the random banded
     matrix collect about 3,000 entries each (the generator clips columns
-    at the border), so its ELL form would be 3,093 wide, 26 GB."""
+    at the border), so its ELL form would be 3,093 wide, 26 GB. HYB and
+    BCSR are shown on random_banded_spd(J_RAND_N): converting and planning
+    the 1M-row one twice took 70 s of host time, and the routing does not
+    depend on its depth."""
     from rocalution_tpu_torch.ops.spmv import as_operator
 
     tol = TOL[torch.float64]
+    rand = rt.random_banded_spd(J_RAND_N)
     for fmt, kw, A, tag, key in (
             ("ELL", {}, lap, f"laplacian_3d({LAP_N})", "roll_f64"),
-            ("HYB", {}, rand, f"random_banded_spd({RAND_N})", "gather_f64"),
-            ("BCSR", {"block_dim": 4}, rand, f"random_banded_spd({RAND_N})",
-             "gather_f64")):
+            ("HYB", {}, rand, f"random_banded_spd({J_RAND_N})",
+             "gather_f64"),
+            ("BCSR", {"block_dim": 4}, rand,
+             f"random_banded_spd({J_RAND_N})", "gather_f64")):
         A_plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
         x = random_x(rt, A, torch.float64)
         want = rt.spmv(A_plain, x)                 # no plan: plain CSR apply
@@ -723,18 +768,22 @@ def phase_j(rt, kernels, totals, lap, rand):
 
 
 class PlanTimer:
-    """Seconds spent in the WJD planner and in the compact builder while
-    the context is open (the module functions are wrapped, then put back)."""
+    """Seconds spent in the WJD planner and in the compact builder, and in
+    the module functions named in `extra` ((module, name) pairs), while the
+    context is open (the functions are wrapped, then put back)."""
 
-    NAMES = ("csr_to_wjd_plan", "compact_slices")
-
-    def __enter__(self):
+    def __init__(self, extra=()):
         import rocalution_tpu_torch.formats.wjd as wjd
 
-        self.mod, self.saved, self.s = wjd, {}, dict.fromkeys(self.NAMES, 0.0)
-        for name in self.NAMES:
-            fn = self.saved[name] = getattr(wjd, name)
-            setattr(wjd, name, self._timed(name, fn))
+        self.targets = [(wjd, "csr_to_wjd_plan"), (wjd, "compact_slices"),
+                        *extra]
+
+    def __enter__(self):
+        self.saved, self.s = [], {name: 0.0 for _, name in self.targets}
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(name, fn))
         return self
 
     def _timed(self, name, fn):
@@ -747,8 +796,8 @@ class PlanTimer:
         return call
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.mod, name, fn)
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
 
 
 def served_by(M):
@@ -806,16 +855,19 @@ def plain_hierarchy(rt, mg, h, A0_plain):
                               [fresh(v.R) for v in lv[:-1]])
 
 
-def unsplit_closure(rt, mg, h, A0):
-    """A cycle closure over fresh copies of h's CSRs, placed on the card and
-    each planned with split_dia=False: no diagonal leaves a level's or a
-    transfer's slot plan for a plain DIA part."""
-    hp = mg.place_hierarchy(plain_hierarchy(rt, mg, h, A0))
+def split_closure(rt, mg, h, A0):
+    """A fresh copy of A0 on the card and a cycle closure over it and fresh
+    copies of h's CSRs, each planned with split_dia=True, the JAX
+    package's f32 rule: every globally dense diagonal leaves its level's or
+    transfer's slot plan for a plain DIA part (on the card the port plans
+    without the split). A0 itself keeps its plan."""
+    A0s = rt.CSR.from_arrays(*A0.numpy_triplet(), A0.shape)
+    hp = mg.place_hierarchy(plain_hierarchy(rt, mg, h, A0s))
     for lv in hp.levels:
         for M in (lv.A, lv.P, lv.R):
             if isinstance(M, rt.CSR):
-                rt.attach_wjd(M, split_dia=False)
-    return mg.cycle_closure(hp)
+                rt.attach_wjd(M, split_dia=True)
+    return A0s, mg.cycle_closure(hp)
 
 
 def hold_transfers(rt, kernels, h, tag):
@@ -877,15 +929,56 @@ class Plain:
         self.rt.set_auto_wjd(None)
 
 
+def host_profile(run, n):
+    """Where the host's time in run(n) goes, per step: cProfile's Python
+    functions by their own time, and torch.profiler's CPU rows (aten ops
+    and CUDA runtime calls: cudaLaunchKernel, cudaMalloc, synchronizations)
+    by self CPU time. Device-to-host syncs are counted apart. Returns a
+    line of text."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+
+    run(n)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    run(n)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:HOST_TOP]
+    py = "; ".join(
+        f"{tt / n * 1e3:.3f} ms x{nc / n:.1f} {fn[2]} "
+        f"({fn[0].rsplit('/', 1)[-1]}:{fn[1]})"
+        for fn, (_, nc, tt, _, _) in top)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        run(n)
+        torch.cuda.synchronize()
+    rows = [e for e in tp.key_averages() if e.device_type.name == "CPU"]
+    syncs = sum(e.count for e in rows if e.key in SYNC_ROWS) / n - 1 / n
+    cpu = sorted(rows, key=lambda e: -e.self_cpu_time_total)[:HOST_TOP]
+    aten = "; ".join(f"{e.self_cpu_time_total / n / 1e3:.3f} ms "
+                     f"x{e.count / n:.1f} {e.key[:40]}" for e in cpu)
+    return (f"wall under cProfile {wall:.3f} ms | {syncs:.1f} device-to-host "
+            f"syncs a step | Python, own time: {py} | torch CPU rows, self "
+            f"time: {aten}")
+
+
 def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
-              A0_plain, unsplit=False):
+              A0_plain, split=False, h_plain=None):
     """One hierarchy on the card: closure (placement, plans, coarse QR),
     how each operator is served, CG through the kernels, the same solve
     plain (fresh plan-free copies of the levels, auto_wjd off), both timed
     in turns, the transfers held against their plain versions, and where
-    the time of a V-cycle and of a CG iteration goes on both paths. With
-    `unsplit`, a third path plans every CSR with split_dia=False and is
-    solved, timed and profiled beside the other two."""
+    the time of a V-cycle (device, and the host's share by function) and of
+    a CG iteration goes on both paths. With `split`, a third path plans
+    every CSR with the JAX package's f32 DIA split and is solved, timed and
+    profiled beside the other two. `h_plain`: the hierarchy the plain
+    path copies (default: h)."""
     with PlanTimer() as pt:
         t0 = time.perf_counter()
         M = amg_levels(mg, h, tag)
@@ -897,7 +990,8 @@ def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
         raise RuntimeError(f"K {tag}: the solve launched no kernel")
     paths = {"WJD": (A0, M, contextlib.nullcontext())}
     with Plain(rt), Counted(kernels, {}) as cp:
-        Mp = mg.cycle_closure(plain_hierarchy(rt, mg, h, A0_plain))
+        Mp = mg.cycle_closure(plain_hierarchy(rt, mg, h_plain or h,
+                                              A0_plain))
         it_p = amg_cg(rt, A0_plain, b, Mp, rel_tol, err_tol,
                       f"{tag} plain")[0]
     paths["plain"] = (A0_plain, Mp, Plain(rt))
@@ -906,24 +1000,23 @@ def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
     if abs(it_p - it) > 1:
         raise RuntimeError(f"K {tag}: WJD {it} vs plain {it_p} iterations")
     turns = ("WJD", "plain", "plain", "WJD")
-    unsplit_text = ""
-    if unsplit:
+    split_text = ""
+    if split:
         with Counted(kernels, {}) as cu:
-            Mu = unsplit_closure(rt, mg, h, A0)
-            it_u = amg_cg(rt, A0, b, Mu, rel_tol, err_tol,
-                          f"{tag} WJD unsplit")[0]
+            A0s, Mu = split_closure(rt, mg, h, A0)
+            it_u = amg_cg(rt, A0s, b, Mu, rel_tol, err_tol,
+                          f"{tag} WJD split")[0]
         if abs(it_u - it) > 1:
-            raise RuntimeError(f"K {tag}: WJD {it} vs unsplit {it_u} "
+            raise RuntimeError(f"K {tag}: WJD {it} vs split {it_u} "
                                "iterations")
-        paths["WJD unsplit"] = (A0, Mu, contextlib.nullcontext())
-        turns = ("WJD", "plain", "WJD unsplit", "WJD unsplit", "plain",
-                 "WJD")
-        split = sum(len(M._wjd_cache.dia_offsets)
-                    for lv in Mu.hierarchy.levels for M in (lv.A, lv.P, lv.R)
-                    if isinstance(M, rt.CSR))
-        unsplit_text = (f" | WJD unsplit (split_dia=False on every CSR, "
-                        f"{split} diagonals split off): {it_u} iters, "
-                        f"launches { {k: n for k, n in cu.got.items() if n} }")
+        paths["WJD split"] = (A0s, Mu, contextlib.nullcontext())
+        turns = ("WJD", "plain", "WJD split", "WJD split", "plain", "WJD")
+        n_split = sum(len(M._wjd_cache.dia_offsets)
+                      for lv in Mu.hierarchy.levels
+                      for M in (lv.A, lv.P, lv.R) if isinstance(M, rt.CSR))
+        split_text = (f" | WJD split (split_dia=True on every CSR, "
+                      f"{n_split} diagonals split off): {it_u} iters, "
+                      f"launches { {k: n for k, n in cu.got.items() if n} }")
     ms = []
     for path in turns:                                      # in turns
         A_, M_, ctx = paths[path]
@@ -935,7 +1028,7 @@ def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
         f"{pt.s['compact_slices']:.1f} s) | CG+SA-AMG rel_tol {rel_tol:g}: "
         f"{it} iters (status 2, |x-1|/|1|={err:.2e}), {masked} masked steps "
         f"(check_every={AMG_CHECK_EVERY}), launches {used} | plain {it_p} "
-        f"iters, no launch{unsplit_text} | ms/iter in turns "
+        f"iters, no launch{split_text} | ms/iter in turns "
         + ", ".join(ms))
     hold_transfers(rt, kernels, M.hierarchy, tag)
     for path, (A_, M_, ctx) in paths.items():
@@ -946,6 +1039,8 @@ def amg_phase(rt, kernels, mg, totals, h, A0, b, tag, rel_tol, err_tol,
         with ctx:
             text = device_profile(cycles, *AMG_PROF_CYCLES)
             say("K", f"{tag} {path}, one V-cycle: {text}")
+            say("K", f"{tag} {path}, one V-cycle's host time: "
+                f"{host_profile(cycles, AMG_PROF_CYCLES[1])}")
             text = device_profile(
                 lambda k: rt.cg(A_, b, M=M_, rel_tol=1e-30, max_iter=k,
                                 check_every=k), *AMG_PROF_ITERS)
@@ -1001,16 +1096,379 @@ def phase_k(rt, kernels, totals):
     A_plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
     amg_phase(rt, kernels, mg, totals, h, A, b, "K2 f64", 1e-8, 1e-6,
               A_plain)
+    del A_plain
     torch.cuda.empty_cache()
 
-    # K3: its f32 conversion (the fine level becomes DIA)
+    # K3: its f32 conversion. On the card every level stays CSR, for the
+    # kernels; the plain path converts with auto_wjd off, which gives the
+    # JAX package's formats (DIA where a level has few diagonals)
     t0 = time.perf_counter()
     h32 = mg.convert_hierarchy(h, dtype=np.float32)
-    say("K", f"K3 f32 conversion {time.perf_counter() - t0:.1f} s, levels "
-        f"{[type(lv.A).__name__ for lv in h32.levels]}")
-    del h, A_plain
+    conv_s = time.perf_counter() - t0
+    with Plain(rt):
+        h32p = mg.convert_hierarchy(h, dtype=np.float32)
+    say("K", f"K3 f32 conversion {conv_s:.1f} s, levels "
+        f"{[type(lv.A).__name__ for lv in h32.levels]}; with auto_wjd off "
+        f"(the plain path) {[type(lv.A).__name__ for lv in h32p.levels]}")
+    del h
     amg_phase(rt, kernels, mg, totals, h32, h32.levels[0].A, b.float(),
-              "K3 f32", 1e-6, 1e-3, h32.levels[0].A, unsplit=True)
+              "K3 f32", 1e-6, 1e-3, h32p.levels[0].A, split=True,
+              h_plain=h32p)
+
+
+def true_residual(A, x, b):
+    """||b - A x|| / ||b|| in f64 on the host, from A's host triplet."""
+    import scipy.sparse as sp
+
+    S = sp.csr_matrix(A.numpy_triplet(), shape=A.shape)
+    bh = b.double().cpu().numpy()
+    return float(np.linalg.norm(bh - S @ x.double().cpu().numpy())
+                 / np.linalg.norm(bh))
+
+
+def error_of(A, x, b, ones):
+    """||x - 1|| / ||1|| where b = A 1, else the true relative residual."""
+    if ones:
+        return "|x-1|/|1|", float(torch.linalg.norm(x.double() - 1.0)
+                                  / np.sqrt(x.shape[0]))
+    return "|b-Ax|/|b|", true_residual(A, x, b)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def factor_served(M, got):
+    """How the card serves each factor's sweeps or level solves: the
+    off-diagonal part's plan and its launches, or the schedule's levels."""
+    names = ("lower", "upper")
+    if M.schedules is not None:
+        out = [f"{name}: level schedule, {sch.nlev} levels of up to "
+               f"{sch.rows.shape[1]} rows, plain torch ops"
+               for name, sch in zip(names, M.schedules)]
+    else:
+        out = [f"{name} off-diagonal part: {served_by(T._offd_cache)}"
+               for name, T in zip(names, M.factors)]
+    return "; ".join(out) + f" | launches of the solve {got}"
+
+
+def hold_row_kernels(rt, kernels, phase, tag, Op, M):
+    """The kernel apply of a row's operator and of each factor's
+    off-diagonal part (where the plan serves them) against the plan's
+    plain product and the plain CSR apply of the same triplet, on the same
+    x, at TOL; raises on a disagreement, or if no part has a plan. These
+    launches are not the main path's."""
+    parts = [("operator", Op)]
+    if M.schedules is None:
+        parts += [(f"{name} off-diagonal part", T._offd_cache)
+                  for name, T in zip(("lower", "upper"), M.factors)]
+    lines = []
+    for name, N in parts:
+        W = getattr(N, "_wjd_cache", None)
+        if W is None:
+            continue
+        x = random_x(rt, N, W.dtype)
+        y = kernels.wjd_spmv(W, x)
+        _, rel = rel_err(y, kernels.wjd_reference(W, x),
+                         f"{phase} {tag} {name}", TOL[W.dtype])
+        plain_csr = rt.CSR.from_arrays(*N.numpy_triplet(), N.shape)
+        _, rel_c = rel_err(y, rt.spmv(plain_csr, x),
+                           f"{phase} {tag} {name} vs plain CSR", TOL[W.dtype])
+        lines.append(f"{name} {rel:.1e}/{rel_c:.1e}")
+        del plain_csr
+    if not lines:
+        raise RuntimeError(f"{phase} {tag}: no part of the row has a plan")
+    return "; ".join(lines)
+
+
+def check_row(phase, tag, A, x, b, ones, info, spec):
+    """A factorization row's solve: the status the row wants, and |x-1|/|1|
+    under spec["err"] where b = A 1, else the true relative residual
+    (f64, from A's host triplet) under RES_BOUND. Returns (name, value)."""
+    status = int(info.status)
+    name, err = error_of(A, x, b, ones)
+    if ones:
+        bound = spec["err"]
+    else:
+        reported = float(info.final_res) / float(info.init_res)
+        bound = max(RES_BOUND[0] * reported, RES_BOUND[1][A.dtype])
+    if status != spec["status"] or not err <= bound:
+        raise RuntimeError(f"{phase} {tag}: status {status} (want "
+                           f"{spec['status']}), {name} {err:.3e} (bound "
+                           f"{bound:.1e})")
+    return name, err
+
+
+def factor_row(rt, kernels, totals, phase, tag, spec):
+    """One factorization row on the card: setup (factorization, schedules
+    or off-diagonal plans, planning and compacting seconds), the solve
+    through the WJD kernels, the same solve plain (a fresh plan-free copy,
+    auto_wjd off), both timed in turns, one profiled iteration of each,
+    one preconditioner apply of each, and what served the operator and
+    each factor. `spec`: make() -> A on the card; rhs(A) -> (b, b is A 1);
+    precond(A) -> M; operator(A, wjd) -> the solver's operand; solver;
+    kw; status = the status both paths must reach; err = the bound on
+    |x-1|/|1| where b = A 1 (else the true relative residual is held to
+    RES_BOUND); tol = the iterations the two paths may differ by (None: a
+    row whose count rounding alone moves, held to the same status only);
+    want = the iterations the row must take, or None; prof = the
+    iterations timed and profiled (default FACTOR_PROF). Before the solve,
+    the kernel apply of the operator and of each factor's off-diagonal
+    part is held against its plain versions (`hold_row_kernels`). Returns
+    the iterations."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    # the module, not the function `ilu` that precond/__init__ exports
+    ilu_mod = importlib.import_module("rocalution_tpu_torch.precond.ilu")
+
+    (A, gen_s) = timed(spec["make"])
+    b, ones = spec["rhs"](A)
+    solver, kw = spec["solver"], dict(spec["kw"],
+                                      check_every=FACTOR_CHECK_EVERY)
+    extra = [(ilu_mod, n) for n in ("ilu0", "ic0", "build_schedule",
+                                    "prepare_offd")]
+    with PlanTimer(extra) as pt:
+        def setup():
+            Op = spec["operator"](A, True)
+            as_operator(Op)                 # its plan, now
+            return spec["precond"](A), Op
+        (M, Op), setup_s = timed(setup)
+    held = hold_row_kernels(rt, kernels, phase, tag, Op, M)
+    with Counted(kernels, totals) as c:
+        (x, info), first_s = timed(lambda: solver(Op, b, M=M, **kw))
+    it, status = int(info.iterations), int(info.status)
+    err_name, err = check_row(phase, f"{tag} WJD", A, x, b, ones, info, spec)
+    if spec.get("want") is not None and it != spec["want"]:
+        raise RuntimeError(f"{phase} {tag}: {it} iterations, want "
+                           f"{spec['want']}")
+    used = {k: n for k, n in c.got.items() if n}
+    if not used:
+        raise RuntimeError(f"{phase} {tag}: the solve launched no kernel")
+    with Plain(rt), Counted(kernels, {}) as cp:
+        A_p = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+        M_p = spec["precond"](A_p)
+        Op_p = spec["operator"](A_p, False)
+        x_p, info_p = solver(Op_p, b, M=M_p, **kw)
+    if any(cp.got.values()):
+        raise RuntimeError(f"{phase} {tag} plain: launched {cp.got}")
+    it_p, status_p = int(info_p.iterations), int(info_p.status)
+    _, err_p = check_row(phase, f"{tag} plain", A, x_p, b, ones, info_p,
+                         spec)
+    if status_p != status or (spec["tol"] is not None
+                              and abs(it_p - it) > spec["tol"]):
+        raise RuntimeError(f"{phase} {tag}: WJD {it} iterations status "
+                           f"{status}, plain {it_p} status {status_p}")
+    paths = {"WJD": (Op, M, contextlib.nullcontext()),
+             "plain": (Op_p, M_p, Plain(rt))}
+    ms = []
+    for path in ("WJD", "plain", "plain", "WJD"):
+        Op_, M_, ctx = paths[path]
+        with ctx:
+            (_, inf_), s = timed(lambda: solver(Op_, b, M=M_, **kw))
+        ms.append(f"{path} {s / int(inf_.iterations) * 1e3:.3f}")
+    served = (f"operator: {served_by(Op)} | factors: "
+              f"{factor_served(M, used)}")
+    say(phase, f"{tag}: n={A.shape[0]} nnz={A.nnz} {A.dtype} generate "
+        f"{gen_s:.1f} s | setup {setup_s:.2f} s (factorization "
+        f"{pt.s['ilu0'] + pt.s['ic0']:.2f} s, schedules "
+        f"{pt.s['build_schedule']:.2f} s, off-diagonal parts "
+        f"{pt.s['prepare_offd']:.2f} s of which WJD planning "
+        f"{pt.s['csr_to_wjd_plan']:.2f} s and compacting "
+        f"{pt.s['compact_slices']:.2f} s) | WJD: status {status}, {it} "
+        f"iters, {err_name} {err:.3e}, first solve {first_s:.2f} s | plain: "
+        f"status {status_p}, {it_p} iters, {err_p:.3e}"
+        + (" (a count rounding moves: not held to the WJD one)"
+           if spec["tol"] is None else "") + " | ms/iter in turns "
+        + ", ".join(ms))
+    say(phase, f"{tag} served by: {served}")
+    say(phase, f"{tag}: each kernel apply vs the plan's plain product / the "
+        f"plain CSR apply, max|dy|/max|y| (tol {TOL[A.dtype]:g}): {held}")
+    r = b.clone()
+    for path, (Op_, M_, ctx) in paths.items():
+        with ctx:
+            apply_ms = median_host_ms(lambda: M_(r))
+            text = device_profile(
+                lambda k: solver(Op_, b, M=M_, rel_tol=1e-30, max_iter=k,
+                                 check_every=k, **{
+                                     k_: v for k_, v in spec["kw"].items()
+                                     if k_ not in ("rel_tol", "max_iter")}),
+                *spec.get("prof", FACTOR_PROF))
+        say(phase, f"{tag} {path}: preconditioner apply {apply_ms:.3f} ms "
+            f"(host clock) | one iteration: {text}")
+    return it
+
+
+def median_host_ms(fn):
+    """Median host-clock ms of APPLY_REPS synchronized calls of fn()."""
+    fn()
+    times = []
+    for _ in range(APPLY_REPS):
+        times.append(timed(fn)[1] * 1e3)
+    return statistics.median(times)
+
+
+def phase_l(rt, kernels, totals):
+    """IC(0) and ILU(0) with CG and GMRES(30): bench.py's three rows at
+    their own sizes (L1), then the two solvers at about a million rows in
+    f64 (L2)."""
+
+    def ones_rhs(A):
+        return rhs_of_ones(A), True
+
+    def rng4_rhs(A):
+        b = np.random.default_rng(4).standard_normal(A.shape[0])
+        return torch.from_numpy(b.astype(A.numpy_triplet()[0].dtype)).to(
+            A.device), False
+
+    def fem_rhs(A):
+        # bench.py's b = spmv(Af, 1), made by the port's plain CPU apply
+        Ah = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape, device="cpu")
+        return rt.spmv(Ah, torch.ones(A.shape[1], dtype=Ah.dtype)).to(
+            A.device), True
+
+    def as_is(A, wjd):
+        return A
+
+    def attached(A, wjd):
+        return rt.attach_wjd(A) if wjd else A
+
+    f32 = np.float32
+    # err: about ten times the |x-1|/|1| both paths reach on the H100
+    rows = [
+        ("L1", f"cg_ic0 laplacian_2d({L1_IC_N}) f32, ic jacobi 8 sweeps, CG "
+         "on the DIA operator, rel_tol 1e-8", dict(
+             make=lambda: rt.laplacian_2d(L1_IC_N, dtype=f32), rhs=ones_rhs,
+             precond=lambda A: rt.ic(A, method="jacobi", sweeps=8),
+             operator=lambda A, wjd: rt.convert(A, "DIA"), solver=rt.cg,
+             kw=dict(rel_tol=1e-8, max_iter=1000), status=2, err=1e-5,
+             tol=1,
+             want=L1_WANT["cg_ic0"])),
+        ("L1", f"gmres_ilu0 convection_diffusion_2d({L1_CD_N}) f32, ilu(0) "
+         "jacobi 8 sweeps, GMRES(30), rel_tol 1e-8", dict(
+             make=lambda: rt.convection_diffusion_2d(L1_CD_N, dtype=f32),
+             rhs=rng4_rhs,
+             precond=lambda A: rt.ilu(A, 0, method="jacobi", sweeps=8),
+             operator=attached, solver=rt.gmres,
+             kw=dict(basis_size=30, rel_tol=1e-8, max_iter=600), status=2,
+             tol=None)),
+        ("L1", f"gmres_ilu0_f64 convection_diffusion_2d({L1_CD_N}) f64, "
+         "the same recipe in f64", dict(
+             make=lambda: rt.convection_diffusion_2d(L1_CD_N),
+             rhs=rng4_rhs,
+             precond=lambda A: rt.ilu(A, 0, method="jacobi", sweeps=8),
+             operator=attached, solver=rt.gmres,
+             kw=dict(basis_size=30, rel_tol=1e-8, max_iter=600), status=2,
+             tol=2,
+             want=L1_WANT["gmres_ilu0_f64"])),
+        ("L1", f"fem_ilu0 fem_2d_unstructured({L1_FEM_N}) f32 parabolic, "
+         "ilu(0) levels, CG, rel_tol 1e-4", dict(
+             make=lambda: rt.fem_2d_unstructured(L1_FEM_N, dtype=f32,
+                                                 parabolic=True),
+             rhs=fem_rhs, precond=lambda A: rt.ilu(A, 0, method="levels"),
+             operator=as_is, solver=rt.cg,
+             # CG amplifies a rounding difference about tenfold a step on
+             # this operator with ILU(0) (tests/test_torch_ilu.py)
+             kw=dict(rel_tol=1e-4, max_iter=200), status=2, err=2e-4,
+             tol=None,
+             # an iteration is ~8,600 device ops: profile two
+             prof=(4, 2))),
+        ("L2", f"laplacian_3d({L2_LAP_N}) f64, ic jacobi 8 sweeps, CG, "
+         "rel_tol 1e-8", dict(
+             make=lambda: rt.laplacian_3d(L2_LAP_N), rhs=ones_rhs,
+             precond=lambda A: rt.ic(A, method="jacobi", sweeps=8),
+             operator=as_is, solver=rt.cg,
+             kw=dict(rel_tol=1e-8, max_iter=2000), status=2, err=1e-7,
+             tol=1)),
+        ("L2", f"convection_diffusion_2d({L2_CD_N}) f64, ilu(0) jacobi 8 "
+         "sweeps, GMRES(30), rel_tol 1e-6", dict(
+             make=lambda: rt.convection_diffusion_2d(L2_CD_N), rhs=rng4_rhs,
+             precond=lambda A: rt.ilu(A, 0, method="jacobi", sweeps=8),
+             operator=as_is, solver=rt.gmres,
+             kw=dict(basis_size=30, rel_tol=1e-6, max_iter=600),
+             status=L2_CD_STATUS,
+             tol=2)),
+    ]
+    for phase, tag, spec in rows:
+        t0 = time.perf_counter()
+        factor_row(rt, kernels, totals, phase, tag, spec)
+        say(phase, f"{tag.split(',')[0]}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+
+def phase_m(rt, kernels, totals):
+    """MixedPrecisionDC: bench.py's mpdc row (M1: 3 outer iterations, and
+    the f32 inner operator keeps its host cache), then the same settings at
+    a million rows (M2). The outer residual goes through the f64 operator's
+    plan, the inner CG through the f32 copy's."""
+    kw = dict(rel_tol=1e-10, max_iter=20,
+              inner_kwargs={"rel_tol": 1e-4, "max_iter": 2000,
+                            "check_every": FACTOR_CHECK_EVERY})
+    for phase, tag, make in (
+            ("M1", f"laplacian_2d({M1_N}) f64", lambda: rt.laplacian_2d(M1_N)),
+            ("M2", f"laplacian_3d({M2_N}) f64",
+             lambda: rt.laplacian_3d(M2_N))):
+        t0 = time.perf_counter()
+        A = make()
+        b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            A.shape[0])).to(A.device)
+        with Counted(kernels, totals) as c:
+            (x, info), first_s = timed(
+                lambda: rt.mixed_precision_dc(A, b, **kw))
+        it, status = int(info.iterations), int(info.status)
+        res = true_residual(A, x, b)
+        # bench.py's mpdc_inner_fast, read off the f32 operator the solve
+        # used: it kept its host arrays, so it planned without a device read
+        A_low = A._mpdc_cache[2]
+        cache = getattr(A_low, "_host_cache", None)
+        inner_fast = float(bool(cache) and cache["data"].dtype == np.float32)
+        if phase == "M1" and (it != 3 or inner_fast != 1.0):
+            raise RuntimeError(f"M1: {it} outer iterations, mpdc_inner_fast "
+                               f"{inner_fast}; the bench records 3 and 1")
+        if status != 2 or not res < 1e-9:
+            raise RuntimeError(f"{phase}: status {status}, |b-Ax|/|b| "
+                               f"{res:.3e}")
+        used = {k: n for k, n in c.got.items() if n}
+        with Plain(rt), Counted(kernels, {}) as cp:
+            A_p = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+            x_p, info_p = rt.mixed_precision_dc(A_p, b, **kw)
+        if any(cp.got.values()):
+            raise RuntimeError(f"{phase} plain: launched {cp.got}")
+        if int(info_p.status) != 2 or abs(int(info_p.iterations) - it) > 1:
+            raise RuntimeError(f"{phase}: WJD {it} outer iterations, plain "
+                               f"{int(info_p.iterations)}")
+        paths = {"WJD": (A, contextlib.nullcontext()),
+                 "plain": (A_p, Plain(rt))}
+        ms = []
+        for path in ("WJD", "plain", "plain", "WJD"):
+            A_, ctx = paths[path]
+            with ctx:
+                (_, inf_), s = timed(
+                    lambda: rt.mixed_precision_dc(A_, b, **kw))
+            ms.append(f"{path} {s * 1e3 / int(inf_.iterations):.2f}")
+        it_p = int(info_p.iterations)
+        say(phase, f"mpdc {tag} rel_tol 1e-10, inner CG f32 rel_tol 1e-4: "
+            f"status {status}, {it} outer iterations (plain {it_p}), "
+            f"|b-Ax|/|b| {res:.3e}, mpdc_inner_fast "
+            f"{inner_fast:.0f}, first solve (with the f32 copy's plan) "
+            f"{first_s:.2f} s | ms per outer iteration in turns "
+            + ", ".join(ms))
+        say(phase, f"{tag} served by: outer residual {served_by(A)} | inner "
+            f"f32 operator {served_by(A_low)} | launches {used}")
+        r32 = b.float()
+        for path, (A_, ctx) in paths.items():
+            with ctx:
+                op = A_._mpdc_cache[2]
+                text = device_profile(
+                    lambda k: rt.cg(op, r32, rel_tol=1e-30, max_iter=k,
+                                    check_every=k), *FACTOR_PROF)
+            say(phase, f"{tag} {path}, one inner CG iteration: {text}")
+        say(phase, f"{tag}: {time.perf_counter() - t0:.1f} s")
+        del A, A_p, A_low
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1021,8 +1479,17 @@ def main():
     from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
     t_start = time.perf_counter()
+    mark = [t_start]
+
+    def lap(name):
+        """Print the seconds since the last mark: one phase's seconds."""
+        now = time.perf_counter()
+        say(name, f"phase {name}: {now - mark[0]:.0f} s")
+        mark[0] = now
+
     phase_a()
     phase_b(kernels)
+    lap("A-B")
 
     # no device is named anywhere below: the port builds on the card
     lap64 = rt.laplacian_3d(LAP_N)
@@ -1033,10 +1500,11 @@ def main():
     ops = {
         "roll_f64": (lap64, {}),
         "gather_f64": (rand64, {}),
-        "roll_f32": (lap32, {"split_dia": False}),
+        "roll_f32": (lap32, {}),
         "gather_f32": (rand32, {}),
     }
     measured, padded = phase_c(rt, kernels, ops)
+    lap("C")
 
     # main paths: each runs with the counts set to 0 just before it and
     # read just after; `totals` adds them up per entry point
@@ -1047,15 +1515,19 @@ def main():
                     rand64, "gather_f64", 1e-8, 1e-6)
         phase_solve(rt, kernels, "F", f"random_banded_spd({RAND_N}) f32",
                     rand32, "gather_f32", 1e-5, 1e-3)
-        phase_solve(rt, kernels, "F", f"laplacian_3d({LAP_N}) f32 split_dia="
-                    "False", lap32, "roll_f32", 1e-5, 1e-3)
+        phase_solve(rt, kernels, "F", f"laplacian_3d({LAP_N}) f32 unsplit",
+                    lap32, "roll_f32", 1e-5, 1e-3)
+    lap("D-F")
     phase_g(rt, {f"laplacian_3d({LAP_N}) f64 WJD": (A, b, None),
                  f"laplacian_3d({LAP_N}) f64 plain CSR": (A_plain, b, False)})
     phase_g_host(rt, kernels, A, A_plain)
     del A_plain, b
+    lap("G")
 
     measured.update(phase_h(rt, kernels, totals, ops, measured, padded))
-    phase_j(rt, kernels, totals, lap64, rand64)
+    lap("H")
+    phase_j(rt, kernels, totals, lap64)
+    lap("J")
     del ops, padded, lap64, lap32, rand64, rand32, A
     torch.cuda.empty_cache()
 
@@ -1065,17 +1537,20 @@ def main():
         1e-6))
     torch.cuda.empty_cache()
     measured.update(phase_i(
-        rt, kernels, totals, f"laplacian_3d({WIN_LAP32_N}) f32 split_dia="
-        "False", lambda: rt.laplacian_3d(WIN_LAP32_N, dtype=np.float32),
-        "win_roll_f32", {"split_dia": False}, 1e-6, 1e-3))
+        rt, kernels, totals, f"laplacian_3d({WIN_LAP32_N}) f32 unsplit",
+        lambda: rt.laplacian_3d(WIN_LAP32_N, dtype=np.float32),
+        "win_roll_f32", {}, 1e-6, 1e-3))
     torch.cuda.empty_cache()
     measured.update(phase_i(
         rt, kernels, totals, f"random_banded_spd({WIN_RAND_N}) f32",
         lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
         "win_gather_f32", {}, 1e-5, 1e-3))
     torch.cuda.empty_cache()
+    lap("I")
 
-    phase_k(rt, kernels, totals)
+    for name, phase in (("K", phase_k), ("L", phase_l), ("M", phase_m)):
+        phase(rt, kernels, totals)
+        lap(name)
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

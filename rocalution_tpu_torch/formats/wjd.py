@@ -1,7 +1,8 @@
 """WJD — windowed jagged-diagonal storage (the device-fast sparse format).
 
 Counterpart of rocalution_tpu/formats/wjd.py; the host planner is copied
-from it decision for decision, so both packages build equal plans:
+from it decision for decision, so both packages build equal plans from
+equal arguments:
 
 * Rows are grouped into **tiles of 1024** (row i -> tile t = i//1024,
   s = (i//128)%8, l = i%128).
@@ -13,7 +14,9 @@ from it decision for decision, so both packages build equal plans:
 * Element (t, k, s, l) of a slot multiplies
   ``xpad[(brow[t,k] + s)*128 + l + u]``, where xpad is x with ``pad_lo``
   zeros in front, padded to ``xp_len``. Slots beyond ``max_slots`` spill to
-  a COO tail; in f32, globally dense diagonals split off to a DIA part.
+  a COO tail. Under ``split_dia`` (the reference's default in f32; not
+  the port's, see `csr_to_wjd_plan`), globally dense diagonals split off
+  to a DIA part.
 
 On Hopper this is a sliced ELL with a slice height of 1024 (see
 ops/cuda/spmv_wjd.py). One deliberate difference from the JAX package: f64
@@ -144,13 +147,20 @@ _FF_COST_ROLL = 18.0
 def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                     max_slots: Optional[int] = 128,
                     kernel_mode: str = "auto",
-                    split_dia="auto") -> dict:
+                    split_dia=False) -> dict:
     """Host-side CSR -> WJD *plan* (numpy arrays + static fields only).
 
     ``max_slots`` caps slots per tile; entries in hotter slots spill to a
     COO tail. ``kernel_mode``: "gather" | "roll" | "auto" ("auto" picks by
     the per-slot cost model). ``split_dia``: move globally dense diagonals
-    to a DIA part ("auto" = f32 values only).
+    to a DIA part ("auto" = f32 values only, the JAX package's default).
+
+    A deliberate difference from the JAX package: the port's default keeps
+    every diagonal in the slots, on every device. The reference's "auto"
+    rule sends the globally dense diagonals of an f32 operator to a DIA
+    part, which XLA serves well on a TPU; on the H100 that part is a few
+    plain torch ops per diagonal, and the kernel serves the same diagonals
+    for less (f32 CG + SA-AMG, ROADMAP.md section 3, fault 6).
     """
     n, m = int(shape[0]), int(shape[1])
     vals = np.asarray(vals)

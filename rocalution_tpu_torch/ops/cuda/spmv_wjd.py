@@ -77,17 +77,28 @@ def build() -> None:
     _build.build_all()
 
 
+_entry_points: dict = {}
+
+
 def _call(lib: str, name: str, argtypes, counter: str, xp: torch.Tensor,
           *args):
     """Call entry point `name` on the current stream of xp's device; raise
-    unless the launch succeeds; count it."""
-    fn = getattr(_build.load(lib), name)
-    if fn.argtypes is None:
+    unless the launch succeeds; count it. The runtime launches on the
+    thread's current device, so another device is made current for the
+    call."""
+    fn = _entry_points.get(name)
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
         fn.argtypes = argtypes
         fn.restype = _INT
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        _entry_points[name] = fn
+    dev = xp.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
         rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[counter] += 1
@@ -123,6 +134,29 @@ def pad_x(A: WJD, x: torch.Tensor, cols: int = 0) -> torch.Tensor:
     else:
         xp = x.new_zeros((A.xp_len, max(cols, x.shape[1])))
         xp[A.pad_lo:A.pad_lo + m, :x.shape[1]] = x
+    return xp
+
+
+def _padded(A: WJD, x: torch.Tensor, cols: int = 0) -> torch.Tensor:
+    """`pad_x` for the wrappers on the card, into a buffer kept on the plan
+    per (stream, dtype, width): its pad rows are zeroed once, and a call
+    copies x into its middle, one copy in place of an allocation, a fill
+    and a copy. Work on one stream runs in order, so the copy of the next
+    call waits for the kernel that read the last one. A chunk narrower than
+    its width leaves the last columns as an earlier call wrote them: a
+    column of the product reads only its own column of x, and the wrapper
+    keeps only the chunk's columns."""
+    m = A.shape[1]
+    width = max(cols, x.shape[1]) if x.dim() == 2 else 0
+    key = (torch.cuda.current_stream(x.device).cuda_stream, x.dtype, width)
+    bufs = A.__dict__.setdefault("_xpad", {})
+    xp = bufs.get(key)
+    if xp is None:
+        xp = bufs[key] = pad_x(A, x, cols)
+    elif x.dim() == 1:
+        xp[A.pad_lo:A.pad_lo + m].copy_(x)
+    else:
+        xp[A.pad_lo:A.pad_lo + m, :x.shape[1]].copy_(x)
     return xp
 
 
@@ -219,11 +253,25 @@ def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
     """Raise unless the kernels take these operands (the plan's slot
-    planes, or its compact slice form); return the dtype tag."""
+    planes, or its compact slice form); return the dtype tag. The plan's
+    own tensors do not change, so they are checked once per plan and
+    form; xp is checked every call."""
     tag = _DTYPE_TAG.get(A.dtype)
     if tag is None or xp.dtype != A.dtype:
         raise TypeError(f"WJD kernel takes f32/f64 values with x of the same "
                         f"dtype, got {A.dtype} and {xp.dtype}")
+    if not xp.is_cuda:
+        raise ValueError("WJD kernels take CUDA tensors only")
+    if not xp.is_contiguous():
+        raise ValueError("padded x must be contiguous")
+    checked = A.__dict__.setdefault("_checked", {})
+    if checked.get(compact) != xp.device:
+        _check_plan(A, xp.device, compact)
+        checked[compact] = xp.device
+    return tag
+
+
+def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
     if compact:
         operands = [A.cval, A.coff, A.slice_ptr, A.xbase]
         if A.kernel_mode != "gather" or any(t is None for t in operands):
@@ -254,13 +302,10 @@ def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
         if tuple(A.data.shape) != (Tp, K, 8, 128):
             raise ValueError(f"WJD data shape {tuple(A.data.shape)} != "
                              f"{(Tp, K, 8, 128)}")
-    for t in operands + [xp]:
-        if t.device != xp.device or not t.is_contiguous():
+    for t in operands:
+        if t.device != device or not t.is_contiguous():
             raise ValueError("WJD kernel operands must be contiguous and on "
-                             f"{xp.device}")
-    if not xp.is_cuda:
-        raise ValueError("WJD kernels take CUDA tensors only")
-    return tag
+                             f"{device}")
 
 
 def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
@@ -348,7 +393,8 @@ def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
     if A.nnz == 0:
         y = x.new_zeros(n)
     else:
-        y = slots(A, pad_x(A, x)).reshape(-1)[:n]
+        xp = _padded(A, x) if x.is_cuda else pad_x(A, x)
+        y = slots(A, xp).reshape(-1)[:n]
         if A.spill_row.numel():
             y.index_add_(0, A.spill_row,
                          A.spill_val * x.index_select(0, A.spill_col))
@@ -370,7 +416,9 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
         for j0 in range(0, k, MRHS_MAX_COLS):
             kc = min(MRHS_MAX_COLS, k - j0)
             width = next(w for w in _MRHS_WIDTHS if w >= kc)
-            y = slots(A, pad_x(A, X[:, j0:j0 + kc], width))
+            Xc = X[:, j0:j0 + kc]
+            y = slots(A, _padded(A, Xc, width) if X.is_cuda
+                      else pad_x(A, Xc, width))
             outs.append(y[:n, :kc])
         Y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
         if A.spill_row.numel():

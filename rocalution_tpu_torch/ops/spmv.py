@@ -163,7 +163,11 @@ def _wjd_eligible(A: CSR) -> bool:
 _WJD_ROUTED = (ELL, HYB, BCSR)
 
 
-def _auto_wjd_on(A) -> bool:
+def auto_wjd_applies(A) -> bool:
+    """Whether the solvers plan A for the WJD kernels at setup
+    (config.auto_wjd; default: when A's tensors live on CUDA). Auto-attach,
+    the factors' off-diagonal parts and the AMG level formats all read
+    this one rule."""
     auto = get_config().auto_wjd
     if auto is None:
         auto = A.device.type == "cuda"
@@ -174,13 +178,13 @@ def maybe_attach_wjd(A):
     """Auto-attach WJD to a host-built CSR, and to ELL, HYB and BCSR
     operands by way of CSR, when the fast path applies (config.auto_wjd;
     default = when the operand's tensors live on CUDA). The analog of the
-    reference running csrmv analysis in Solver::Build. A CSR whose values
-    were computed on the device (no host arrays) has its triplet read back
-    once, here. A conversion that fails raises: there is no quiet way
-    around the kernel."""
+    reference running csrmv analysis in Solver::Build. An operand without
+    host arrays (values computed on the device, or a `cast_values` copy of
+    an ELL, HYB or BCSR) has its arrays read back once, here. A conversion
+    that fails raises: there is no quiet way around the kernel."""
     if not isinstance(A, (CSR,) + _WJD_ROUTED):
         return A
-    if getattr(A, "_wjd_cache", None) is not None or not _auto_wjd_on(A):
+    if getattr(A, "_wjd_cache", None) is not None or not auto_wjd_applies(A):
         return A
     if isinstance(A, CSR):
         if "data" not in (getattr(A, "_host_cache", None) or {}):
@@ -189,10 +193,8 @@ def maybe_attach_wjd(A):
         if _wjd_eligible(A):
             attach_wjd(A)
         return A
-    # ELL/HYB/BCSR: by way of CSR, when host data is available
-    probe = A.ell if isinstance(A, HYB) else A
-    if not getattr(probe, "_host_cache", None):
-        return A
+    # ELL/HYB/BCSR: by way of CSR, from the host arrays where the operand
+    # has them, else read back once (a `cast_values` copy has none)
     from ..formats.convert import to_csr
     from ..formats.wjd import from_csr
 

@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ...config import default_device
-from ...formats import CSR, DIA, WJD
+from ...formats import MatrixBase
 from ...ops import blas1
 from ...ops.spmv import as_operator
 from ..iter_ctrl import IterationControl
@@ -83,7 +83,7 @@ def identity_precond(r):
 
 def operator_device(A) -> torch.device:
     """Device of a matrix operand; the default device for callables."""
-    if isinstance(A, (CSR, DIA, WJD)):
+    if isinstance(A, MatrixBase):
         return A.device
     return default_device()
 

@@ -254,13 +254,22 @@ def convert_hierarchy(h: Hierarchy, fmt: str = "auto",
     """Convert level operators to a faster device format (reference:
     SetOperatorFormat/DefaultSmootherOperatorFormat on BaseAMG). "auto"
     picks DIA when the level's band has few distinct offsets, else keeps
-    CSR. `dtype` additionally casts every level's values, from their host
+    CSR, except where the WJD kernels will serve the levels (auto-attach
+    on for the fine operator: on the card by default). There "auto" keeps
+    every CSR, a deliberate difference from the JAX package: a DIA level is
+    a few plain torch ops per diagonal on the H100, where the kernel
+    serves the same CSR in one launch (ROADMAP.md section 3, fault 6).
+    `dtype` additionally casts every level's values, from their host
     arrays. Each operator stays where it is: the fine one on its device,
     the setup levels on the host, so no value is uploaded only to be
     replaced. Smoothers and the coarse solver are rebuilt against the
     converted operators."""
     from ...formats import DIA, cast_values, convert
     from ...formats.wjd import X_VMEM_BUDGET
+    from ...ops.spmv import auto_wjd_applies
+
+    if fmt == "auto" and auto_wjd_applies(h.levels[0].A):
+        fmt = "CSR"
 
     def cast(M):
         if dtype is None or M is None:

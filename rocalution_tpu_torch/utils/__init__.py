@@ -1,5 +1,7 @@
 """Utilities: test-problem generators."""
 
-from .generators import laplacian_2d, laplacian_3d, random_banded_spd
+from .generators import (convection_diffusion_2d, fem_2d_unstructured,
+                         laplacian_2d, laplacian_3d, random_banded_spd)
 
-__all__ = ["laplacian_2d", "laplacian_3d", "random_banded_spd"]
+__all__ = ["convection_diffusion_2d", "fem_2d_unstructured", "laplacian_2d",
+           "laplacian_3d", "random_banded_spd"]

@@ -2,7 +2,9 @@
 
 Counterpart of rocalution_tpu/utils/generators.py, copied line for line so
 the host triplets are bit-identical (reference: `gen_2d_laplacian`,
-clients/include/utility.hpp:46). Built host-side with numpy; ``device``
+clients/include/utility.hpp:46); `fem_2d_unstructured` draws its points
+from numpy's default_rng(seed) and triangulates with scipy, as the JAX
+package does. Built host-side with numpy; ``device``
 says where the CSR's tensors go (default: the configured device).
 """
 
@@ -10,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..config import numpy_dtype
+from ..config import numpy_dtype, resolve_device
 from ..formats import CSR
 
 
@@ -67,6 +69,38 @@ def laplacian_3d(n: int, dtype=None, device=None) -> CSR:
     )
 
 
+def convection_diffusion_2d(n: int, peclet: float = 20.0, dtype=None,
+                            device=None) -> CSR:
+    """Nonsymmetric 2D convection-diffusion operator (5-point diffusion +
+    first-order upwind convection, Dirichlet), N = n^2 unknowns: the
+    nonsymmetric target of the GMRES/ILU rows (reference: the same
+    GMRES/ILU stack, clients/samples/gmres.cpp)."""
+    dtype = numpy_dtype(dtype)
+    N = n * n
+    h = 1.0 / (n + 1)
+    bx, by = peclet, 0.5 * peclet          # constant convection field
+    idx = np.arange(N, dtype=np.int64)
+    ix = idx % n
+    iy = idx // n
+    rows, cols, vals = [], [], []
+
+    def add(mask, r, c, v):
+        rows.append(r[mask])
+        cols.append(c[mask])
+        vals.append(np.full(mask.sum(), v, dtype=dtype))
+
+    diag = 4.0 + h * (abs(bx) + abs(by))
+    add(np.ones(N, dtype=bool), idx, idx, diag)
+    add(ix > 0, idx, idx - 1, -1.0 - h * max(bx, 0.0))
+    add(ix < n - 1, idx, idx + 1, -1.0 + h * min(bx, 0.0))
+    add(iy > 0, idx, idx - n, -1.0 - h * max(by, 0.0))
+    add(iy < n - 1, idx, idx + n, -1.0 + h * min(by, 0.0))
+    return CSR.from_coo(
+        np.concatenate(rows), np.concatenate(cols), np.concatenate(vals),
+        (N, N), device=device,
+    )
+
+
 def random_banded_spd(n: int, nnz_per_row: int = 7, bandwidth: int = 8192,
                       seed: int = 0, dtype=None, device=None) -> CSR:
     """Random SPD matrix with scattered columns inside a band — the stand-in
@@ -87,3 +121,55 @@ def random_banded_spd(n: int, nnz_per_row: int = 7, bandwidth: int = 8192,
     c = np.concatenate([c, np.arange(n)])
     v = np.concatenate([v, (dom + 1.0).astype(dtype)])
     return CSR.from_coo(r, c, v, (n, n), device=device)
+
+
+def fem_2d_unstructured(npts: int, seed: int = 0, dtype=None,
+                        rcm: bool = True, parabolic: bool = False,
+                        dt: float = None, device=None) -> CSR:
+    """P1 finite-element stiffness matrix on a random Delaunay
+    triangulation of the unit square: an unstructured operator (variable
+    row degree, irregular sparsity; the bcsstk / parabolic_fem class). SPD
+    through a lumped mass shift (pure Neumann stiffness has the constant
+    nullspace); ``parabolic=True`` builds M + dt*K, the implicit-Euler heat
+    operator. ``rcm``: reverse Cuthill-McKee reordering (ops/ordering),
+    without which a random point cloud has bandwidth ~n. The host arrays
+    are built on the host in full, then the CSR goes to ``device``."""
+    from scipy.spatial import Delaunay
+
+    dtype = numpy_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    pts = rng.random((npts, 2))
+    tri = Delaunay(pts).simplices                       # (nt, 3)
+    p0, p1, p2 = pts[tri[:, 0]], pts[tri[:, 1]], pts[tri[:, 2]]
+    # edge vectors opposite each vertex; grad phi_i = rot90(e_i)/(2A)
+    e0 = p2 - p1
+    e1 = p0 - p2
+    e2 = p1 - p0
+    area2 = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]   # 2*signed area
+    area = np.abs(area2) / 2.0
+    g = np.stack([e0, e1, e2], axis=1)                  # (nt, 3, 2)
+    g = np.stack([-g[..., 1], g[..., 0]], axis=-1)      # rotate 90 degrees
+    g /= area2[:, None, None]
+    # element stiffness K_ij = area * g_i . g_j  (nt, 3, 3)
+    Ke = area[:, None, None] * np.einsum("tid,tjd->tij", g, g)
+    rows = np.repeat(tri, 3, axis=1).reshape(-1)        # i index
+    cols = np.tile(tri, (1, 3)).reshape(-1)             # j index
+    vals = Ke.reshape(-1)
+    if parabolic:
+        if dt is None:
+            dt = 2.0 / npts         # ~2x the mean element area
+        vals = vals * dt
+    # lumped mass: area/3 per vertex per element
+    mr = tri.reshape(-1)
+    mv = np.repeat(area / 3.0, 3)
+    rows = np.concatenate([rows, mr])
+    cols = np.concatenate([cols, mr])
+    vals = np.concatenate([vals, mv])
+    device = resolve_device(device)
+    A = CSR.from_coo(rows, cols, vals.astype(dtype), (npts, npts),
+                     device="cpu" if rcm else device)
+    if rcm:
+        from ..ops.ordering import permute_csr, rcmk
+
+        A = permute_csr(A, rcmk(A), device=device)
+    return A

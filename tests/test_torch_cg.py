@@ -24,6 +24,20 @@ def on_the_cpu():
     yield
     rt.set_default_device(before)
 
+@pytest.fixture(autouse=True)
+def one_tile_steps(monkeypatch):
+    """One tile per grid step in both planners: the JAX side's interpreted
+    Pallas kernel unrolls group x K slot bodies per step, and the tiles of
+    zeros that pad these operators to a group cost most of its seconds. The
+    product does not depend on the grouping (as in
+    tests/test_torch_spmv.py)."""
+    import rocalution_tpu.formats.wjd as jax_wjd
+    import rocalution_tpu_torch.formats.wjd as torch_wjd
+
+    for mod in (jax_wjd, torch_wjd):
+        monkeypatch.setattr(mod, "_auto_group", lambda K: 1)
+
+
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
     "randband_3000": lambda m, dt: m.random_banded_spd(

@@ -145,6 +145,28 @@ def test_routed_formats_give_the_unrouted_result(name, fmt, k):
                                atol=2e-5 * float(unrouted.abs().max()))
 
 
+@pytest.mark.parametrize("fmt", ["ELL", "HYB", "BCSR"])
+def test_cast_routed_format_gets_a_plan(fmt):
+    """A `cast_values` copy of an ELL, HYB or BCSR operand is cast tensor by
+    tensor and has no host arrays. With auto_wjd on (the card's default)
+    `maybe_attach_wjd` reads it back once and plans it, as MixedPrecisionDC
+    needs for its f32 operator; the routed apply gives the unrouted one."""
+    B = rt.cast_values(rt.convert(rt.laplacian_2d(40), fmt), torch.float32)
+    assert not getattr(B.ell if fmt == "HYB" else B, "_host_cache", None)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        B.shape[1]).astype(np.float32))
+    unrouted = rt.spmv(B, x)
+    rt.set_auto_wjd(True)
+    try:
+        maybe_attach_wjd(B)
+    finally:
+        rt.set_auto_wjd(None)
+    W = B._wjd_cache
+    assert W is not None and W.dtype == torch.float32
+    np.testing.assert_allclose(rt.spmv(B, x).numpy(), unrouted.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_cast_values_matches_jax():
     Aj, At = PAIRS["lap2d_7"]()
     for fmt in FORMATS:

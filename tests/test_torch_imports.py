@@ -20,7 +20,10 @@ from rocalution_tpu_torch.formats import (bcsr, convert, coo, dense, ell, hyb,
                                           mcsr)
 from rocalution_tpu_torch.ops.cuda import _build, spmv_wjd
 from rocalution_tpu_torch import native
-from rocalution_tpu_torch.ops import spgemm
+from rocalution_tpu_torch.ops import factorize, ordering, spgemm, trisolve
+from rocalution_tpu_torch.precond import ilu, jacobi
+from rocalution_tpu_torch.solvers import mixed_precision
+from rocalution_tpu_torch.solvers.krylov import gmres
 from rocalution_tpu_torch.solvers import direct, fixed_point, multigrid
 from rocalution_tpu_torch.solvers.multigrid import aggregation, base
 from rocalution_tpu_torch.utils import log
@@ -57,7 +60,9 @@ def test_public_surface():
                  "IterationControl", "SolverInfo", "laplacian_2d",
                  "laplacian_3d", "random_banded_spd", "info", "sync",
                  "set_default_device", "fixed_point", "fixed_point_sweeps",
-                 "qr", "qr_factor", "lu", "lu_factor", "inversion"):
+                 "qr", "qr_factor", "lu", "lu_factor", "inversion",
+                 "gmres", "fgmres", "mixed_precision_dc", "ilu", "ic",
+                 "itilu0", "convection_diffusion_2d", "fem_2d_unstructured"):
         assert hasattr(rt, name), name
 
 
@@ -70,6 +75,19 @@ def test_multigrid_surface():
                  "make_galerkin_plans", "sa_level", "ua_level",
                  "pairwise_level"):
         assert hasattr(multigrid, name), name
+
+
+def test_slice_surface():
+    """The factorization slice: orderings, factorizations, tri-solves."""
+    from rocalution_tpu_torch.ops import factorize, ordering, trisolve
+
+    for mod, names in ((ordering, ("rcmk", "cmk", "permute_csr")),
+                       (factorize, ("ilu0", "ic0")),
+                       (trisolve, ("LevelSchedule", "build_schedule",
+                                   "solve_schedule", "prepare_offd",
+                                   "trisolve_jacobi"))):
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
 
 
 def test_default_device_is_explicit():

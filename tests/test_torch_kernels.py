@@ -486,3 +486,154 @@ def test_rebuilt_hierarchy_goes_through_the_kernels(cuda_device):
     _, M_cpu = closure("cpu")
     want = M_cpu(b.cpu())
     assert _rel(e.cpu(), want) <= 1e-10
+
+
+@pytest.mark.parametrize("fmt", ["ELL", "HYB", "BCSR"])
+def test_cast_routed_format_goes_through_the_kernel(cuda_device, fmt):
+    """A `cast_values` copy of an ELL, HYB or BCSR operand has no host
+    arrays; on the card a solver's `as_operator` reads it back once and
+    plans it, and its apply is a kernel launch equal to the plain CSR
+    apply."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    A = rt.laplacian_2d(40, dtype=np.float32)
+    B = rt.cast_values(rt.convert(rt.laplacian_2d(40), fmt), torch.float32)
+    assert not getattr(B.ell if fmt == "HYB" else B, "_host_cache", None)
+    x = _x(1600, torch.float32, cuda_device)
+    op = as_operator(B)
+    W = B._wjd_cache
+    assert W.dtype == torch.float32 and not W.dia_offsets
+    key = f"{W.kernel_mode}_f32"
+    before = kernels.launches[key]
+    y = op(x)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape,
+                               device=cuda_device)
+    assert _rel(y, rt.spmv(plain, x)) <= TOL[torch.float32]
+
+
+def test_f32_plan_on_the_card_keeps_its_diagonals(cuda_device):
+    """An f32 plan is unsplit unless split_dia says otherwise, so a banded
+    f32 operator on the card is served by the roll kernel, and its plan is
+    the one the CPU makes."""
+    A = rt.laplacian_3d(12, dtype=np.float32)
+    W = from_csr(A)
+    assert W.kernel_mode == "roll" and not W.dia_offsets
+    assert from_csr(A, split_dia="auto").dia_offsets   # the reference's rule
+    Wc = from_csr(rt.laplacian_3d(12, dtype=np.float32, device="cpu"))
+    assert not Wc.dia_offsets
+    assert torch.equal(Wc.brow, W.brow.cpu())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_factor_sweeps_go_through_the_kernel(cuda_device, dtype):
+    """IC(0) with Jacobi sweeps on the card: the off-diagonal part of each
+    factor carries a plan, each sweep is a kernel launch, and the sweep
+    equals its plain version (the part's plain CSR apply) and the same
+    tri-solve on the CPU."""
+    from rocalution_tpu_torch.ops import factorize, trisolve
+
+    L = factorize.ic0(rt.laplacian_3d(12, dtype=dtype, device="cpu"))
+    N = trisolve.prepare_offd(L, cuda_device)
+    W = N._wjd_cache
+    key = f"{W.kernel_mode}_{'f64' if dtype == np.float64 else 'f32'}"
+    x = _x(L.shape[0], W.dtype, cuda_device)
+    before = kernels.launches[key]
+    y = rt.spmv(N, x)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    plain = rt.CSR.from_arrays(*N.numpy_triplet(), N.shape,
+                               device=cuda_device)
+    assert _rel(y, rt.spmv(plain, x)) <= TOL[W.dtype]
+    before = kernels.launches[key]
+    z = trisolve.trisolve_jacobi(L, x, sweeps=5)
+    assert kernels.launches[key] == before + 5
+    want = trisolve.trisolve_jacobi(L, x.cpu(), sweeps=5)
+    assert _rel(z.cpu(), want) <= 10 * TOL[W.dtype]
+
+
+def test_padded_x_buffer_is_reused_safely(cuda_device):
+    """The wrappers copy x into a padded buffer kept on the plan: applies
+    of different vectors, queued back to back, each give their own
+    product, and a narrower chunk of columns after a wider one (the same
+    buffer) gives its own columns' product."""
+    W = from_csr(rt.random_banded_spd(3000, bandwidth=512))
+    xs = [_x(3000, torch.float64, cuda_device, seed=s) for s in range(4)]
+    ys = [kernels.wjd_spmv(W, x) for x in xs]
+    for x, y in zip(xs, ys):
+        assert _rel(y, kernels.wjd_reference(W, x)) <= TOL[torch.float64]
+    X = _x(3000 * 4, torch.float64, cuda_device).view(3000, 4)
+    Y4 = rt.spmv(W, X)
+    Y3 = rt.spmv(W, X[:, :3].contiguous())
+    assert _rel(Y4, kernels.wjd_reference(W, X)) <= TOL[torch.float64]
+    assert Y3.shape == (3000, 3)
+    assert _rel(Y3, kernels.wjd_reference(W, X[:, :3])) <= TOL[torch.float64]
+
+
+def test_gmres_ilu_on_cuda_goes_through_the_kernels(cuda_device):
+    """GMRES(30) + ILU(0) with Jacobi sweeps on the card: the operator and
+    both factors' off-diagonal parts are planned, the solve launches the
+    kernels (one apply and 16 sweeps a step at least), and it takes the
+    iterations of the CPU solve (within 2)."""
+
+    def solve(device):
+        A = rt.convection_diffusion_2d(40, device=device)
+        b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            A.shape[0])).to(device)
+        M = rt.ilu(A, 0, method="jacobi", sweeps=8)
+        before = sum(kernels.launches.values())
+        x, info = rt.gmres(A, b, M=M, rel_tol=1e-8, max_iter=300)
+        torch.cuda.synchronize()
+        return A, M, info, sum(kernels.launches.values()) - before
+
+    A, M, info, got = solve(cuda_device)
+    assert A._wjd_cache is not None
+    assert all(T._offd_cache._wjd_cache is not None for T in M.factors)
+    assert int(info.status) == 2
+    assert got >= 17 * int(info.iterations)
+    _, _, info_cpu, _ = solve("cpu")
+    assert abs(int(info.iterations) - int(info_cpu.iterations)) <= 2
+
+
+def test_mpdc_on_cuda_goes_through_both_kernels(cuda_device):
+    """MixedPrecisionDC on the card: the outer residual through the f64
+    operator's plan, the inner CG through the f32 copy's; the outer
+    iterations of the CPU solve."""
+    kw = dict(rel_tol=1e-10, max_iter=20,
+              inner_kwargs={"rel_tol": 1e-4, "max_iter": 2000})
+
+    def solve(device):
+        A = rt.laplacian_2d(64, device=device)
+        b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            A.shape[0])).to(device)
+        before = dict(kernels.launches)
+        _, info = rt.mixed_precision_dc(A, b, **kw)
+        torch.cuda.synchronize()
+        return A, info, {k: kernels.launches[k] - before[k] for k in before}
+
+    A, info, got = solve(cuda_device)
+    assert int(info.status) == 2
+    outer = f"{A._wjd_cache.kernel_mode}_f64"
+    inner = f"{A._mpdc_cache[2]._wjd_cache.kernel_mode}_f32"
+    assert got[outer] == int(info.iterations) + 1
+    assert got[inner] > 10 * int(info.iterations)
+    _, info_cpu, _ = solve("cpu")
+    assert int(info.iterations) == int(info_cpu.iterations)
+
+
+def test_f32_hierarchy_on_the_card_keeps_csr_levels(cuda_device):
+    """convert_hierarchy on the card keeps every level CSR (the kernels
+    serve it); with auto_wjd off it picks the JAX package's DIA levels."""
+    from rocalution_tpu_torch.solvers.multigrid import (amg_hierarchy,
+                                                        convert_hierarchy)
+
+    h = amg_hierarchy(rt.laplacian_3d(16), "sa", coarse_size=100)
+    h32 = convert_hierarchy(h, dtype=np.float32)
+    assert all(isinstance(lv.A, rt.CSR) for lv in h32.levels)
+    rt.set_auto_wjd(False)
+    try:
+        h32p = convert_hierarchy(h, dtype=np.float32)
+    finally:
+        rt.set_auto_wjd(None)
+    assert isinstance(h32p.levels[0].A, rt.DIA)

@@ -61,11 +61,11 @@ OPERATORS = {
     "lap2d_20_roll": (lambda dt: (jrt.laplacian_2d(20, dtype=dt),
                                   rt.laplacian_2d(20, dtype=dt)),
                       {"split_dia": False}, "roll"),
-    # f32 with the default split: all five diagonals go to the DIA part and
-    # the slot plan is empty
+    # f32 under the reference's split rule (the JAX planner's default): all
+    # five diagonals go to the DIA part and the slot plan is empty
     "lap2d_20_split": (lambda dt: (jrt.laplacian_2d(20, dtype=dt),
                                    rt.laplacian_2d(20, dtype=dt)),
-                       {}, None),
+                       {"split_dia": "auto"}, None),
 }
 # k = 20 crosses the port's chunk of 16 columns. f32 plans take the four
 # widths on one gather and one roll operator only.

@@ -126,16 +126,18 @@ def test_plan_arrays_equal_in_the_windowed_regime(dtype, kernel_mode,
 
 
 def test_plan_table_for_the_slice_operators():
-    """The modes the slice's kernels serve (f64 roll/gather, f32 split)."""
+    """The modes the slice's kernels serve (f64 roll/gather; f32 unsplit
+    by the port's default, and under the reference's split rule)."""
     expect = {
-        ("lap2d_30", np.float64): ("roll", (8, 5), 0),
-        ("lap3d_12", np.float64): ("roll", (8, 7), 0),
-        ("randband_3000", np.float64): ("gather", (4, 128), 0),
-        ("lap3d_12", np.float32): ("gather", (8, 1), 7),
+        ("lap2d_30", np.float64, False): ("roll", (8, 5), 0),
+        ("lap3d_12", np.float64, False): ("roll", (8, 7), 0),
+        ("randband_3000", np.float64, False): ("gather", (4, 128), 0),
+        ("lap3d_12", np.float32, False): ("roll", (8, 7), 0),
+        ("lap3d_12", np.float32, "auto"): ("gather", (8, 1), 7),
     }
-    for (name, dtype), (mode, shape, ndia) in expect.items():
+    for (name, dtype, split), (mode, shape, ndia) in expect.items():
         _, At = _pair(name, dtype)
-        W = from_csr(At)
+        W = from_csr(At) if split is False else from_csr(At, split_dia=split)
         assert W.kernel_mode == mode
         assert tuple(W.brow.shape) == shape
         assert len(W.dia_offsets) == ndia

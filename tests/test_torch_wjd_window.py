@@ -144,7 +144,7 @@ def test_windowed_dispatch(name, dtype, want, monkeypatch):
 def test_windowed_needs_windows():
     """A plan without win_base (no slots) is never in the windowed regime."""
     At = rt.laplacian_2d(10, dtype=np.float32)
-    W = from_csr(At)                       # all diagonals split off to DIA
+    W = from_csr(At, split_dia="auto")     # all diagonals split off to DIA
     assert W.win_base is None
     assert not windowed(W, torch.float32)
 
@@ -296,7 +296,9 @@ def test_jax_planned_plan_gets_the_window_relative_form(small_budget,
     fields = {f.name: getattr(Wj, f.name) for f in dataclasses.fields(Wj)}
     Wt = wjd_from_numpy({k: (np.asarray(v) if hasattr(v, "shape") else v)
                          for k, v in fields.items()}, device="cpu")
-    W = from_csr(GENERATORS["randband_3000"](rt, np.float32))
+    # the JAX planner's default is the reference's split rule
+    W = from_csr(GENERATORS["randband_3000"](rt, np.float32),
+                 split_dia="auto")
     assert Wt.window_relative and windowed(Wt, torch.float32)
     for name in ("cval", "coff", "slice_ptr", "xbase", "win_base"):
         assert torch.equal(getattr(Wt, name), getattr(W, name)), name
