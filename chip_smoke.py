@@ -35,6 +35,16 @@ each went through its kernels:
   M    MixedPrecisionDC: bench.py's mpdc row (3 outer iterations), then
        laplacian_3d(100) f64: the outer residual through the f64 kernel,
        the inner CG through the f32 copy's
+  N    bfloat16 values and the rest of the Krylov family. N1: the six bf16
+       kernels on bf16 plans of the f32 operators of C, H and I (direct,
+       blocked right-hand sides, windowed), each against its plain
+       version, against the f32 plan's product, its bound and the library
+       call, through rt.spmv. N2: BiCGStab, BiCGStab(2), QMRCGStab, IDR(4)
+       on convection_diffusion_2d(1024) f64 and CR, FCG, the power method
+       and Chebyshev on laplacian_3d(100) f64, through the kernels and
+       plain, their launches held to their iterations. N3: MixedPrecisionDC
+       on random_banded_spd(1<<20) f64 with an inner CG over a bf16 plan,
+       beside the same solve over the f32 plan
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -70,6 +80,16 @@ LAP_N = 100                 # laplacian_3d(100): 1,000,000 rows
 RAND_N = 1 << 20            # random_banded_spd(1<<20): 1,048,576 rows
 J_RAND_N = 1 << 18          # phase J's HYB and BCSR operands: 262,144 rows
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# phase N1: a bf16 kernel against its plain version (the same f32 products,
+# summed in another order), and its product against the f32 plan's (the
+# bf16 rounding of the values), both norm-wise
+BF16_TOL = 1e-5
+BF16_VS_F32_TOL = 1e-2
+N_COLS = 16                 # phase N1: columns of the blocked products
+N2_CD_N = 1024              # phase N2: convection_diffusion_2d(1024) f64
+N2_LAP_N = 100              # and laplacian_3d(100) f64
+N2_MAX_ITER = 1000          # the samples' settings (Chebyshev: 2000)
+N2_POWER_ITERS = 200
 REPS = 20
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
 PROF_WALL_ITERS = 256       # phase G: CG iterations timed on the host clock
@@ -122,7 +142,8 @@ CSRC = "rocalution_tpu_torch/csrc/"
 TPU = "rocalution_tpu/ops/pallas/spmv_wjd.py:"
 # launch counter -> (entry point, source, line of the TPU kernel it replaces:
 # _kernel_roll_ff, _kernel_ff, _kernel_roll, _kernel; _kernel_mrhs;
-# _kernel_roll_ff_hbm, _kernel_roll_hbm, _kernel_hbm)
+# _kernel_roll_ff_hbm, _kernel_roll_hbm, _kernel_hbm). The bf16 entry points
+# replace the same kernels run on bfloat16 values.
 KERNELS = {
     "roll_f64": ("wjd_spmv_roll_f64", "spmv_wjd.cu", 206),
     "gather_f64": ("wjd_spmv_gather_f64", "spmv_wjd.cu", 480),
@@ -135,8 +156,14 @@ KERNELS = {
     "win_roll_f64": ("wjd_spmv_win_roll_f64", "spmv_wjd_win.cu", 375),
     "win_roll_f32": ("wjd_spmv_win_roll_f32", "spmv_wjd_win.cu", 233),
     "win_gather_f32": ("wjd_spmv_win_gather_f32", "spmv_wjd_win.cu", 310),
+    "roll_bf16": ("wjd_spmv_roll_bf16", "spmv_wjd.cu", 183),
+    "gather_bf16": ("wjd_spmv_gather_bf16", "spmv_wjd.cu", 137),
+    "spmm_roll_bf16": ("wjd_spmm_roll_bf16", "spmm_wjd.cu", 448),
+    "spmm_gather_bf16": ("wjd_spmm_gather_bf16", "spmm_wjd.cu", 448),
+    "win_roll_bf16": ("wjd_spmv_win_roll_bf16", "spmv_wjd_win.cu", 233),
+    "win_gather_bf16": ("wjd_spmv_win_gather_bf16", "spmv_wjd_win.cu", 310),
 }
-TAG = {torch.float64: "f64", torch.float32: "f32"}
+TAG = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def say(phase, msg):
@@ -218,16 +245,18 @@ def bounds(W, kernels, cols=1, compact=False, through_windows=False):
     the values of the nonzeros the slots hold, x and y, each once, over the
     HBM rate, or 2 flops per nonzero and column over the peak rate,
     whichever is larger (indices are a layout's choice and are left out).
+    Values count in their own type (2 bytes in bf16), x and y in theirs
+    (f32 for bf16 values, whose products are f32 flops).
     own_bytes_ms: the bytes of the layout the kernel streams (the slot
     planes with brow and diag_u, or the compact slice form; padded x; y),
     over the HBM rate."""
-    isz = W.dtype.itemsize
+    vsz, xsz = W.dtype.itemsize, W.x_dtype.itemsize
     n, m = W.shape
     nnz = W.nnz - W.spill_row.numel()
-    t_bytes = (nnz + (n + m) * cols) * isz / PEAK_BYTES * 1e3
-    t_ops = 2 * nnz * cols / PEAK_FLOPS[W.dtype] * 1e3
+    t_bytes = (nnz * vsz + (n + m) * cols * xsz) / PEAK_BYTES * 1e3
+    t_ops = 2 * nnz * cols / PEAK_FLOPS[W.x_dtype] * 1e3
     own = (kernels.slot_bytes(W, compact, through_windows)
-           + (W.xp_len + W.brow.shape[0] * 1024) * isz * cols)
+           + (W.xp_len + W.brow.shape[0] * 1024) * xsz * cols)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "own_bytes_ms": own / PEAK_BYTES * 1e3}
@@ -612,7 +641,8 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
     """One operator in the windowed regime: CG + Jacobi through rt.cg (with
     attach_kw=None the plan comes from the solver's auto-attach alone),
     then the windowed kernel against its plain version, timed beside the
-    direct kernel on the same plan."""
+    direct kernel on the same plan. Returns the kernel row and the
+    operator (phase N1 plans it again with bf16 values)."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     t0 = time.perf_counter()
@@ -707,7 +737,7 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
         f"{bounds_text(b)}, plain {p_ms * 1e3:.1f} us, sparse-CSR library "
         f"call {lib_ms * 1e3:.1f} us")
     return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-                  "library_ms": lib_ms, **b}}
+                  "library_ms": lib_ms, **b}}, A
 
 
 def phase_j(rt, kernels, totals, lap):
@@ -808,7 +838,7 @@ def served_by(M):
     W = getattr(M, "_wjd_cache", None)
     if W is None:
         return f"{type(M).__name__}, plain torch ops"
-    key = (f"{'win_' if windowed(W, W.dtype) else ''}{W.kernel_mode}_"
+    key = (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
            f"{TAG[W.dtype]}")
     Tp, K = W.brow.shape
     text = (f"CSR nnz={M.nnz} -> WJD {W.kernel_mode} (Tp,K)=({Tp},{K}) "
@@ -1216,7 +1246,9 @@ def factor_row(rt, kernels, totals, phase, tag, spec):
     RES_BOUND); tol = the iterations the two paths may differ by (None: a
     row whose count rounding alone moves, held to the same status only);
     want = the iterations the row must take, or None; prof = the
-    iterations timed and profiled (default FACTOR_PROF). Before the solve,
+    iterations timed and profiled (default FACTOR_PROF); turns = the
+    paths timed in turns after the counted solves (default WJD, plain,
+    plain, WJD). Before the solve,
     the kernel apply of the operator and of each factor's off-diagonal
     part is held against its plain versions (`hold_row_kernels`). Returns
     the iterations."""
@@ -1265,7 +1297,7 @@ def factor_row(rt, kernels, totals, phase, tag, spec):
     paths = {"WJD": (Op, M, contextlib.nullcontext()),
              "plain": (Op_p, M_p, Plain(rt))}
     ms = []
-    for path in ("WJD", "plain", "plain", "WJD"):
+    for path in spec.get("turns", ("WJD", "plain", "plain", "WJD")):
         Op_, M_, ctx = paths[path]
         with ctx:
             (_, inf_), s = timed(lambda: solver(Op_, b, M=M_, **kw))
@@ -1374,8 +1406,10 @@ def phase_l(rt, kernels, totals):
              # this operator with ILU(0) (tests/test_torch_ilu.py)
              kw=dict(rel_tol=1e-4, max_iter=200), status=2, err=2e-4,
              tol=None,
-             # an iteration is ~8,600 device ops: profile two
-             prof=(4, 2))),
+             # an iteration is ~8,600 device ops: profile two; and time
+             # one solve a path in turns (~10 s each), so that the whole
+             # run keeps its time with phase N added
+             prof=(4, 2), turns=("WJD", "plain"))),
         ("L2", f"laplacian_3d({L2_LAP_N}) f64, ic jacobi 8 sweeps, CG, "
          "rel_tol 1e-8", dict(
              make=lambda: rt.laplacian_3d(L2_LAP_N), rhs=ones_rhs,
@@ -1470,6 +1504,422 @@ def phase_m(rt, kernels, totals):
         del A, A_p, A_low
         torch.cuda.empty_cache()
 
+def norm_err(got, want, tag, tol):
+    """max|got - want| and ||got - want|| / ||want|| (in f64); raises
+    beyond tol or on a value that is not finite."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{tag}: output is not finite")
+    d = got.double() - want.double()
+    rel = float(torch.linalg.norm(d) / torch.linalg.norm(want.double()))
+    if not rel <= tol:
+        raise RuntimeError(f"{tag}: disagrees with its reference: "
+                           f"{rel:.3e} > {tol}")
+    return float(d.abs().max()), rel
+
+
+def library_bf16_ms(A, x):
+    """The library call on bf16 values and a bf16 x (the same function as
+    a bf16 kernel, whose x is that x widened), where torch serves it on
+    the card; where it raises, the f32 call's time, and a note that says
+    so."""
+    S = torch.sparse_csr_tensor(A.indptr, A.indices,
+                                A.data.to(torch.bfloat16), size=A.shape)
+    xb = x.to(torch.bfloat16)
+    try:
+        S @ xb
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        why = str(exc).strip().splitlines()[0][:90]
+        return library_ms(A, x), (f"library: the bf16 call raised ({why}); "
+                                  "the f32 call's time")
+    return median_ms(lambda: S @ xb), "library: bf16 values and x"
+
+
+def bf16_copy(rt, A, attach_kw):
+    """A CSR on A's arrays (device tensors and host cache shared) with a
+    bf16 plan attached through rt.attach_wjd; the seconds it took. A keeps
+    its f32 plan."""
+    from rocalution_tpu_torch.formats.base import set_host_cache
+
+    B = dataclasses.replace(A)
+    set_host_cache(B, **A._host_cache)
+    t0 = time.perf_counter()
+    rt.attach_wjd(B, values_dtype="bfloat16", **attach_kw)
+    return B, time.perf_counter() - t0
+
+
+def bf16_row(rt, kernels, totals, tag, A, B, key, plan_s):
+    """One bf16 single-RHS kernel (direct or windowed) on B's plan: against
+    its plain version and the f32 plan's product (A's), timed beside the
+    f32 kernel on the same x, its bound and the library call; then the
+    main path, rt.spmv(B, x) with an f32 and a bf16 x."""
+    from rocalution_tpu_torch.formats.wjd import windowed
+
+    W, W32 = B._wjd_cache, A._wjd_cache
+    win = windowed(W, W.x_dtype)
+    if (W.dtype != torch.bfloat16 or key != f"{'win_' if win else ''}"
+            f"{W.kernel_mode}_bf16"):
+        raise RuntimeError(f"N1 {tag}: the bf16 plan ({W.dtype}, "
+                           f"{W.kernel_mode}, windowed {win}) is not {key}'s")
+    gather = W.kernel_mode == "gather"
+    if win:
+        launch = kernels.slots_kernel_windowed
+        plain = (kernels.slots_plain_compact_windowed if gather
+                 else kernels.slots_plain_windowed)
+    else:
+        launch = kernels.slots_kernel
+        plain = kernels.slots_plain_compact if gather else kernels.slots_plain
+    x = random_x(rt, A, torch.float32)
+    xp, xp32 = kernels.pad_x(W, x), kernels.pad_x(W32, x)
+    max_abs, rel_p = norm_err(launch(W, xp), plain(W, xp), key, BF16_TOL)
+    _, rel_32 = norm_err(kernels.wjd_spmv(W, x), kernels.wjd_spmv(W32, x),
+                         f"{key} vs the f32 plan", BF16_VS_F32_TOL)
+    k_ms = median_ms(lambda: launch(W, xp))
+    k32_ms = median_ms(lambda: launch(W32, xp32))
+    p_ms = median_ms(lambda: plain(W, xp))
+    lib_ms, lib_note = library_bf16_ms(A, x)
+    b = bounds(W, kernels, compact=gather, through_windows=win and gather)
+    with Counted(kernels, totals) as c:
+        y1 = rt.spmv(B, x)
+        y2 = rt.spmv(B, x.to(torch.bfloat16))
+    if c.got[key] != 2 or sum(c.got.values()) != 2:
+        raise RuntimeError(f"N1 {key}: rt.spmv launched {c.got}")
+    if y1.dtype != torch.float32 or y2.dtype != torch.float32:
+        raise RuntimeError(f"N1 {key}: y is {y1.dtype}, {y2.dtype}")
+    norm_err(y1, kernels.wjd_spmv(W32, x), f"N1 {key} rt.spmv",
+             BF16_VS_F32_TOL)
+    _, rel_x = norm_err(y2, y1, f"N1 {key} rt.spmv of a bf16 x",
+                        BF16_VS_F32_TOL)
+    Tp, K = W.brow.shape
+    form = (f"compact {W.cval.numel()} elements ({W.compact_padding_ratio:.3f}"
+            f"x), {W.coff.element_size()}-byte offsets" if gather
+            else f"planes (Tp,K)=({Tp},{K})")
+    say("N1", f"{key}: {tag} n={A.shape[0]} nnz={A.nnz} bf16 plan {form}, "
+        f"planned in {plan_s:.1f} s | vs plain {rel_p:.3e} (tol {BF16_TOL:g}),"
+        f" vs the f32 plan {rel_32:.3e} (tol {BF16_VS_F32_TOL:g}), a bf16 x "
+        f"vs an f32 one {rel_x:.3e} (norm-wise) | kernel {k_ms * 1e3:.1f} us "
+        f"(the f32 plan's kernel on the same x {k32_ms * 1e3:.1f} us), "
+        f"{bounds_text(b)}, plain {p_ms * 1e3:.1f} us, {lib_note} "
+        f"{lib_ms * 1e3:.1f} us | rt.spmv(B, x): {c.got[key]} launches")
+    return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+                  "library_ms": lib_ms, **b}}
+
+
+def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
+    """The bf16 SpMM kernel on N_COLS columns of row-major X, as bf16_row
+    holds the single-RHS ones; the main path rt.spmv(B, X)."""
+    W, W32 = B._wjd_cache, A._wjd_cache
+    gather = W.kernel_mode == "gather"
+    if W.dtype != torch.bfloat16 or key != f"spmm_{W.kernel_mode}_bf16":
+        raise RuntimeError(f"N1 {tag}: the bf16 plan is not {key}'s")
+    plain = (kernels.slots_plain_compact_mrhs if gather
+             else kernels.slots_plain_mrhs)
+    X = random_x(rt, A, torch.float32, N_COLS)
+    xp, xp32 = kernels.pad_x(W, X, N_COLS), kernels.pad_x(W32, X, N_COLS)
+    max_abs, rel_p = norm_err(kernels.slots_kernel_mrhs(W, xp), plain(W, xp),
+                              key, BF16_TOL)
+    _, rel_32 = norm_err(kernels.wjd_spmm(W, X), kernels.wjd_spmm(W32, X),
+                         f"{key} vs the f32 plan", BF16_VS_F32_TOL)
+    k_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W, xp))
+    k32_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W32, xp32))
+    p_ms = median_ms(lambda: plain(W, xp))
+    lib_ms, lib_note = library_bf16_ms(A, X)
+    b = bounds(W, kernels, N_COLS, compact=gather)
+    with Counted(kernels, totals) as c:
+        Y = rt.spmv(B, X)
+    if c.got[key] != 1 or sum(c.got.values()) != 1:
+        raise RuntimeError(f"N1 {key}: rt.spmv launched {c.got}")
+    norm_err(Y, kernels.wjd_spmm(W32, X), f"N1 {key} rt.spmv",
+             BF16_VS_F32_TOL)
+    say("N1", f"{key}: {tag} k={N_COLS}, X row-major | vs plain {rel_p:.3e} "
+        f"(tol {BF16_TOL:g}), vs the f32 plan {rel_32:.3e} (tol "
+        f"{BF16_VS_F32_TOL:g}) | kernel {k_ms * 1e3:.1f} us (the f32 plan's "
+        f"{k32_ms * 1e3:.1f} us), {bounds_text(b)}, plain "
+        f"{p_ms * 1e3:.1f} us, {lib_note} {lib_ms * 1e3:.1f} us | "
+        f"rt.spmv(B, X): {c.got[key]} launch")
+    return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+                  "library_ms": lib_ms, **b}}
+
+
+def phase_n1(rt, kernels, totals, direct, windowed_ops):
+    """The six bf16 kernels on bf16 plans of f32 operators that earlier
+    phases built and planned in f32: `direct` {tag: (A, attach_kw)} of C
+    and H (one roll, one gather), `windowed_ops` {tag: (A, attach_kw)} of
+    I. Returns the kernel rows and the bf16 copies of `direct`."""
+    rows, copies = {}, {}
+    for tag, (A, kw) in direct.items():
+        B, plan_s = bf16_copy(rt, A, kw)
+        mode = B._wjd_cache.kernel_mode
+        rows.update(bf16_row(rt, kernels, totals, tag, A, B, f"{mode}_bf16",
+                             plan_s))
+        rows.update(bf16_spmm_row(rt, kernels, totals, tag, A, B,
+                                  f"spmm_{mode}_bf16"))
+        copies[tag] = B
+    for tag, (A, kw) in windowed_ops.items():
+        B, plan_s = bf16_copy(rt, A, kw)
+        rows.update(bf16_row(rt, kernels, totals, tag, A, B,
+                             f"win_{B._wjd_cache.kernel_mode}_bf16", plan_s))
+        del B
+        torch.cuda.empty_cache()
+    return rows, copies
+
+
+def krylov_applies(solver, kw, it, check_every):
+    """(operator applies, preconditioner applies) of a solve that stopped
+    after `it` iterations. A step checks the residual `checks` times (the
+    count moves by one a check); run_chunked runs whole chunks of
+    check_every steps, the masked ones too, and a masked step applies the
+    operator and the preconditioner as a live one does."""
+    l, s = kw.get("order", 2), kw.get("shadow_space", 4)
+    # checks a step; operator applies at the start, a step; preconditioner
+    # applies at the start, a step, at the end
+    checks, op0, op1, pre0, pre1, pre_end = {
+        "cr": (1, 2, 1, 1, 1, 0),
+        "fcg": (1, 1, 1, 1, 1, 0),
+        "bicgstab": (1, 1, 2, 0, 2, 0),
+        "qmrcgstab": (2, 1, 2, 0, 2, 0),
+        "bicgstabl": (l + 1, 1, 2 * l, 0, 2 * l, 1),
+        "idr": (s + 1, 1, s + 1, 0, s + 1, 0),
+        "chebyshev": (1, 1, 1, 1, 1, 0),
+    }[solver]
+    steps = -(-it // checks)
+    steps = -(-steps // check_every) * check_every
+    return op0 + op1 * steps, pre0 + pre1 * steps + pre_end
+
+
+def want_launches(kernels, A, M, n_op, n_pre):
+    """The launches n_op applies of A and n_pre of M make: A's plan's
+    entry point once an apply, and what one apply of M launches (counted
+    on a second apply: the first may finish its setup)."""
+    from rocalution_tpu_torch.formats.wjd import windowed
+
+    W = A._wjd_cache
+    key = (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
+           f"{TAG[W.dtype]}")
+    want = {key: n_op}
+    if M is not None and n_pre:
+        r = rhs_of_ones(A)
+        M(r)
+        with Counted(kernels, {}) as c:
+            M(r)
+        for k, n in c.got.items():
+            if n:
+                want[k] = want.get(k, 0) + n * n_pre
+    return want
+
+
+def res_bound(solver, info):
+    """The bound on a row's true relative residual: RES_BOUND's factor
+    times the residual the solver reported (QMRCGStab reports its
+    quasi-residual tau, which bounds the true one up to sqrt(k+1), the QMR
+    bound), or the f64 floor, whichever is larger."""
+    reported = float(info.final_res) / float(info.init_res)
+    factor = RES_BOUND[0]
+    if solver == "qmrcgstab":
+        factor = max(factor, float(np.sqrt(int(info.iterations) + 1)))
+    return max(factor * reported, RES_BOUND[1][torch.float64])
+
+
+def phase_n2(rt, kernels, totals):
+    """The rest of the Krylov family at a million rows in f64, through
+    roll_f64: the samples' solvers and settings (rel_tol 1e-8, max_iter
+    1000, 2000 for Chebyshev), b = A 1, on phase L2's operators and
+    preconditioners (ILU(0) and IC(0) with 8 Jacobi sweeps). Each row runs
+    through the kernels (counted) and plain (auto_wjd off, fresh copies),
+    once each, in turns, and plain twice more with b scaled by 1 + 1e-15
+    and 1 - 1e-15. It must reach the plain path's status, its true
+    residual must lie within `res_bound` and its launches must be what
+    its iterations apply (`krylov_applies`). Its count must lie within 2
+    of the plain one's (Chebyshev and the power method: equal), unless
+    rounding rules the count: where the three plain counts spread by more
+    than 2 (a BiCG-type solve of hundreds of iterations amplifies
+    rounding, and the plain apply's atomics sum in another order from
+    call to call), the row is held to the same status, and the kernel
+    path is solved under the two scalings too, so that the two paths'
+    counts show their spreads side by side. One iteration of BiCGStab +
+    ILU(0) is profiled on both paths."""
+    kw0 = dict(rel_tol=1e-8, max_iter=N2_MAX_ITER,
+               check_every=FACTOR_CHECK_EVERY)
+    (cd, gen_cd), (lap, gen_lap) = (
+        timed(lambda: rt.convection_diffusion_2d(N2_CD_N)),
+        timed(lambda: rt.laplacian_3d(N2_LAP_N)))
+    ops = {"cd": cd, "lap": lap}
+    with Plain(rt):
+        plain_ops = {k: rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+                     for k, A in ops.items()}
+    makers = {"ilu0": lambda A: rt.ilu(A, 0, method="jacobi", sweeps=8),
+              "ic0": lambda A: rt.ic(A, method="jacobi", sweeps=8),
+              "jacobi": rt.jacobi, None: lambda A: None}
+    setup_s = {}
+
+    def preconds(path_ops, names, ctx):
+        out = {}
+        with ctx:
+            for op, name in names:
+                t0 = time.perf_counter()
+                out[(op, name)] = makers[name](path_ops[op])
+                setup_s[(op, name)] = time.perf_counter() - t0
+        return out
+
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    for A in ops.values():
+        as_operator(A)                               # the plans, now
+    names = [("cd", "ilu0"), ("cd", "jacobi"), ("lap", "jacobi"),
+             ("lap", "ic0"), ("lap", None)]
+    Ms = preconds(ops, names, contextlib.nullcontext())
+    Ms_p = preconds(plain_ops, names, Plain(rt))
+    say("N2", f"convection_diffusion_2d({N2_CD_N}) f64 n={cd.shape[0]} "
+        f"generated in {gen_cd:.1f} s, served by {served_by(cd)}; "
+        f"laplacian_3d({N2_LAP_N}) f64 generated in {gen_lap:.1f} s, "
+        f"{served_by(lap)} | preconditioner setup s (WJD path): "
+        + ", ".join(f"{op} {name} {setup_s[(op, name)]:.2f}"
+                    for op, name in names if name))
+    b = {k: rhs_of_ones(A) for k, A in ops.items()}
+
+    # the power method first: its estimate bounds Chebyshev's spectrum
+    lam = {}
+    for path, A, ctx, tot in (("WJD", lap, contextlib.nullcontext(), totals),
+                              ("plain", plain_ops["lap"], Plain(rt), {})):
+        with ctx, Counted(kernels, tot) as c:
+            (lam_, _), s = timed(lambda: rt.power_method(
+                A, iters=N2_POWER_ITERS))
+        lam[path] = (float(lam_), s, {k: n for k, n in c.got.items() if n})
+    if lam["WJD"][2] != want_launches(kernels, lap, None, N2_POWER_ITERS,
+                                      0) or \
+            lam["plain"][2]:
+        raise RuntimeError(f"N2 power method: launches {lam['WJD'][2]}, "
+                           f"plain {lam['plain'][2]}")
+    if abs(lam["WJD"][0] - lam["plain"][0]) > 1e-12 * lam["plain"][0]:
+        raise RuntimeError(f"N2 power method: {lam['WJD'][0]!r} through the "
+                           f"kernel, {lam['plain'][0]!r} plain")
+    lo, hi = rt.gershgorin(lap)
+    cheb_kw = dict(lambda_min=max(float(lo), 1e-3),
+                   lambda_max=1.05 * lam["WJD"][0])
+    say("N2", f"power_method(iters={N2_POWER_ITERS}) laplacian_3d("
+        f"{N2_LAP_N}): lambda {lam['WJD'][0]:.12f} through the kernel, "
+        f"{lam['plain'][0]:.12f} plain | {lam['WJD'][1] * 1e3:.1f} ms vs "
+        f"{lam['plain'][1] * 1e3:.1f} ms | {lam['WJD'][2]} | Gershgorin "
+        f"[{float(lo):.3f}, {float(hi):.3f}] -> Chebyshev on "
+        f"[{cheb_kw['lambda_min']:g}, {cheb_kw['lambda_max']:.6f}]")
+
+    rows = [  # tag, operator, solver, preconditioner, solver kwargs
+        ("BiCGStab + ILU(0)", "cd", "bicgstab", "ilu0", {}),
+        ("BiCGStab(2) + ILU(0)", "cd", "bicgstabl", "ilu0", {"order": 2}),
+        ("QMRCGStab + Jacobi", "cd", "qmrcgstab", "jacobi", {}),
+        ("IDR(4) + Jacobi", "cd", "idr", "jacobi", {"shadow_space": 4}),
+        ("CR + Jacobi", "lap", "cr", "jacobi", {}),
+        ("FCG + IC(0)", "lap", "fcg", "ic0", {}),
+        ("Chebyshev", "lap", "chebyshev", None,
+         dict(cheb_kw, max_iter=2 * N2_MAX_ITER)),
+    ]
+    for tag, op, solver, pre, kw in rows:
+        kw = {**kw0, **kw}
+        fn = getattr(rt, solver)
+        A, M = ops[op], Ms[(op, pre)]
+        with Counted(kernels, totals) as c:
+            (x, info), s = timed(lambda: fn(A, b[op], M=M, **kw))
+        with Plain(rt), Counted(kernels, {}) as cp:
+            (x_p, info_p), s_p = timed(lambda: fn(
+                plain_ops[op], b[op], M=Ms_p[(op, pre)], **kw))
+            nudged = [int(fn(plain_ops[op], b[op] * (1 + e),
+                             M=Ms_p[(op, pre)], **kw)[1].iterations)
+                      for e in (1e-15, -1e-15)]
+        it, status = int(info.iterations), int(info.status)
+        it_p, status_p = int(info_p.iterations), int(info_p.status)
+        plain_counts = [it_p] + nudged
+        ruled = max(plain_counts) - min(plain_counts) > 2
+        wjd_counts = [it] + ([int(fn(A, b[op] * (1 + e), M=M, **kw)[1]
+                                  .iterations) for e in (1e-15, -1e-15)]
+                             if ruled else [])
+        tol_it = 0 if solver == "chebyshev" else 2
+        if status != status_p or (not ruled and abs(it - it_p) > tol_it):
+            raise RuntimeError(f"N2 {tag}: WJD {it} iterations status "
+                               f"{status}, plain {it_p} status {status_p} "
+                               f"(plain, b scaled by 1 +- 1e-15: {nudged})")
+        res = [true_residual(A, x, b[op]), true_residual(A, x_p, b[op])]
+        bound = [res_bound(solver, info), res_bound(solver, info_p)]
+        if not (res[0] <= bound[0] and res[1] <= bound[1]):
+            raise RuntimeError(f"N2 {tag}: true residual {res} over {bound}")
+        got = {k: n for k, n in c.got.items() if n}
+        want = want_launches(kernels, A, M, *krylov_applies(
+            solver, kw, it, kw["check_every"]))
+        if got != want or any(cp.got.values()):
+            raise RuntimeError(f"N2 {tag}: launches {got}, want {want}; "
+                               f"plain path {cp.got}")
+        err = float(torch.linalg.norm(x - 1.0) / np.sqrt(x.shape[0]))
+        say("N2", f"{tag} on {op}: WJD status {status}, {it} iters, "
+            f"|b-Ax|/|b| {res[0]:.3e} (bound {bound[0]:.1e}), |x-1|/|1| "
+            f"{err:.2e}, {s / max(it, 1) * 1e3:.3f} ms/iter | plain status "
+            f"{status_p}, {it_p} iters | counts at b, b(1 + 1e-15), "
+            f"b(1 - 1e-15): plain {plain_counts}"
+            + (f", WJD {wjd_counts}: ruled by rounding, held to the status"
+               if ruled else f": held within {tol_it}") + " | plain "
+            f"{res[1]:.3e}, {s_p / max(it_p, 1) * 1e3:.3f} ms/iter | "
+            f"launches {got} (what the iterations apply)")
+        if solver == "bicgstab":
+            for path, (A_, M_, ctx) in {
+                    "WJD": (A, M, contextlib.nullcontext()),
+                    "plain": (plain_ops[op], Ms_p[(op, pre)],
+                              Plain(rt))}.items():
+                with ctx:
+                    text = device_profile(
+                        lambda k: fn(A_, b[op], M=M_, rel_tol=1e-30,
+                                     max_iter=k, check_every=k),
+                        *FACTOR_PROF)
+                say("N2", f"{tag} {path}, one iteration: {text}")
+
+
+def phase_n3(rt, kernels, totals, A, A32, B32):
+    """MixedPrecisionDC on A = random_banded_spd(RAND_N) f64, whose
+    outer residual goes through its f64 plan (gather_f64), with an inner
+    CG over B32, the f32 copy with a bf16 plan (gather_bf16); beside the
+    same solve with the inner CG over A32, the f32 copy with an f32 plan
+    (gather_f32). Outer iterations, the final true relative residual (at
+    most rel_tol), ms per outer iteration in turns, launches."""
+    kw = dict(rel_tol=1e-10, max_iter=20)
+    ikw = {"rel_tol": 1e-4, "max_iter": 2000,
+           "check_every": FACTOR_CHECK_EVERY}
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.shape[0])).to(A.device)
+    inner = {"bf16": B32, "f32": A32}
+
+    def solve_with(name):
+        low = inner[name]
+        return rt.mixed_precision_dc(
+            A, b, inner_solver=lambda _, r, **k: rt.cg(low, r, **k),
+            inner_kwargs=ikw, **kw)
+
+    out = {}
+    for name in ("bf16", "f32"):
+        with Counted(kernels, totals) as c:
+            (x, info), first_s = timed(lambda: solve_with(name))
+        it, status = int(info.iterations), int(info.status)
+        res = true_residual(A, x, b)
+        if status != 2 or not res <= kw["rel_tol"]:
+            raise RuntimeError(f"N3 {name}: status {status}, |b-Ax|/|b| "
+                               f"{res:.3e}")
+        got = {k: n for k, n in c.got.items() if n}
+        inner_key = f"gather_{name}"
+        if (got.get("gather_f64") != it + 1 or not got.get(inner_key)
+                or set(got) != {"gather_f64", inner_key}):
+            raise RuntimeError(f"N3 {name}: launches {got} for {it} outer "
+                               "iterations")
+        out[name] = (it, res, first_s, got)
+    ms = []
+    for name in ("bf16", "f32", "f32", "bf16"):
+        (_, inf_), s = timed(lambda: solve_with(name))
+        ms.append(f"{name} {s * 1e3 / int(inf_.iterations):.2f}")
+    say("N3", f"mpdc random_banded_spd({RAND_N}) f64 rel_tol 1e-10, "
+        "inner CG f32 rel_tol 1e-4 over a bf16 plan: "
+        f"{out['bf16'][0]} outer iterations, |b-Ax|/|b| "
+        f"{out['bf16'][1]:.3e}, launches {out['bf16'][3]} | over the f32 "
+        f"plan: {out['f32'][0]} outer iterations, {out['f32'][1]:.3e}, "
+        f"launches {out['f32'][3]} | ms per outer iteration in turns "
+        + ", ".join(ms) + " | inner operators: bf16 "
+        f"{served_by(B32)}; f32 {served_by(A32)}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1528,29 +1978,51 @@ def main():
     lap("H")
     phase_j(rt, kernels, totals, lap64)
     lap("J")
-    del ops, padded, lap64, lap32, rand64, rand32, A
+    # phase N plans lap32 and rand32 again with bf16 values, and solves on
+    # rand64
+    del ops, padded, lap64, A
     torch.cuda.empty_cache()
 
-    measured.update(phase_i(
+    row, A = phase_i(
         rt, kernels, totals, f"laplacian_3d({WIN_LAP64_N}) f64 auto-attach",
         lambda: rt.laplacian_3d(WIN_LAP64_N), "win_roll_f64", None, 1e-8,
-        1e-6))
+        1e-6)
+    measured.update(row)
+    del A
     torch.cuda.empty_cache()
-    measured.update(phase_i(
-        rt, kernels, totals, f"laplacian_3d({WIN_LAP32_N}) f32 unsplit",
-        lambda: rt.laplacian_3d(WIN_LAP32_N, dtype=np.float32),
-        "win_roll_f32", {}, 1e-6, 1e-3))
-    torch.cuda.empty_cache()
-    measured.update(phase_i(
-        rt, kernels, totals, f"random_banded_spd({WIN_RAND_N}) f32",
-        lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
-        "win_gather_f32", {}, 1e-5, 1e-3))
-    torch.cuda.empty_cache()
+    win_ops = {}
+    for tag, make, key, rel_tol in (
+            (f"laplacian_3d({WIN_LAP32_N}) f32 unsplit",
+             lambda: rt.laplacian_3d(WIN_LAP32_N, dtype=np.float32),
+             "win_roll_f32", 1e-6),
+            (f"random_banded_spd({WIN_RAND_N}) f32",
+             lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
+             "win_gather_f32", 1e-5)):
+        row, A = phase_i(rt, kernels, totals, tag, make, key, {}, rel_tol,
+                         1e-3)
+        measured.update(row)
+        win_ops[tag] = (A, {})
+        torch.cuda.empty_cache()
     lap("I")
 
     for name, phase in (("K", phase_k), ("L", phase_l), ("M", phase_m)):
         phase(rt, kernels, totals)
         lap(name)
+
+    rows, bf16 = phase_n1(rt, kernels, totals, {
+        f"laplacian_3d({LAP_N}) f32 unsplit": (lap32, {}),
+        f"random_banded_spd({RAND_N}) f32": (rand32, {})}, win_ops)
+    measured.update(rows)
+    del win_ops
+    torch.cuda.empty_cache()
+    lap("N1")
+    phase_n3(rt, kernels, totals, rand64, rand32,
+             bf16[f"random_banded_spd({RAND_N}) f32"])
+    del bf16, lap32, rand64, rand32
+    torch.cuda.empty_cache()
+    lap("N3")
+    phase_n2(rt, kernels, totals)
+    lap("N2")
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

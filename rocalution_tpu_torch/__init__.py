@@ -5,7 +5,9 @@ mirrors its layout and names. Ported so far: the storage formats (CSR,
 COO, ELL, DIA, HYB, BCSR, MCSR, DENSE, WJD) and their conversions, SpMV
 and SpMM for all of them (with hand-written Hopper kernels for WJD,
 ops/cuda/), BLAS-1, SpGEMM and the Galerkin product (ops/spgemm.py),
-IterationControl, CG, GMRES and FGMRES, FixedPoint, MixedPrecisionDC, the
+IterationControl, the Krylov solvers (CG, CR, FCG, BiCGStab, BiCGStab(l),
+IDR(s), QMRCGStab, GMRES, FGMRES), Chebyshev with Gershgorin bounds and
+the power method, FixedPoint, MixedPrecisionDC, the
 dense direct solvers (QR, LU, inversion), the Jacobi, ILU(0), IC(0) and
 ItILU0 preconditioners (factorized on the host through the native layer,
 applied by level-scheduled or Jacobi-swept tri-solves, ops/trisolve.py),
@@ -22,18 +24,23 @@ from .config import set_auto_wjd, set_default_device, set_default_dtype
 from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
                       cast_values, convert, to_csr)
 from .ops.cuda.spmv_wjd import wjd_spmm, wjd_spmv
+from .ops.spectral import gershgorin, power_method
 from .ops.spmv import attach_wjd, spmv
 from .precond import ic, ilu, itilu0, jacobi
-from .solvers import (IterationControl, SolverInfo, cg, fgmres, fixed_point,
-                      fixed_point_sweeps, gmres, inversion, lu, lu_factor,
-                      mixed_precision_dc, qr, qr_factor)
+from .solvers import (IterationControl, SolverInfo, bicgstab, bicgstabl, cg,
+                      chebyshev, cr, fcg, fgmres, fixed_point,
+                      fixed_point_sweeps, gmres, idr, inversion, lu,
+                      lu_factor, mixed_precision_dc, qmrcgstab, qr,
+                      qr_factor)
 from .utils.generators import (convection_diffusion_2d, fem_2d_unstructured,
                                laplacian_2d, laplacian_3d, random_banded_spd)
 
 __all__ = [
     "CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE", "WJD",
     "convert", "to_csr", "cast_values", "spmv", "wjd_spmv", "wjd_spmm",
-    "attach_wjd", "cg", "gmres", "fgmres", "mixed_precision_dc",
+    "attach_wjd", "cg", "cr", "fcg", "bicgstab", "bicgstabl", "idr",
+    "qmrcgstab", "chebyshev", "gershgorin", "power_method", "gmres",
+    "fgmres", "mixed_precision_dc",
     "fixed_point", "fixed_point_sweeps", "qr", "qr_factor", "lu",
     "lu_factor", "inversion", "jacobi", "ilu", "ic", "itilu0",
     "IterationControl", "SolverInfo", "laplacian_2d", "laplacian_3d",

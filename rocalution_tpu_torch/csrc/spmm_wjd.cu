@@ -5,9 +5,16 @@
 // kernel that loads every slot value once for a chunk of at most 16 columns:
 //
 //   wjd_spmm_roll_f32, wjd_spmm_gather_f32   the kernel's f32 path
+//   wjd_spmm_roll_bf16, wjd_spmm_gather_bf16 its bfloat16-values path: the
+//       values are widened into f32 sums over an f32 X, as the JAX kernel
+//       widens them to its f32 accumulator (acc_dt)
 //   wjd_spmm_roll_f64, wjd_spmm_gather_f64   the same in fp64, where the JAX
 //       package loops over columns through its float-float kernels; the
 //       function Y = A X is the same.
+//
+// The type V of the values is apart from the type T of X, the sums and Y
+// (V = T but for bf16). A lane widens the value it loads to T at once, so
+// that the shuffles and the products are in T.
 //
 // Semantics per column j (wjd_reference): element (t, k, s, l) of slot (t, k)
 // multiplies X_padded[(brow[t,k] + s) * 128 + l + u, j], with u = diag_u[t,k]
@@ -71,9 +78,17 @@
 // Element offsets are 64-bit.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// a value in the type of the sums: bfloat16 widens to float (exact)
+template <typename V>
+__device__ __forceinline__ V widen(V v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kTile = 1024;                       // rows per tile
 constexpr int kSlice = 32;                        // rows per warp / slice
@@ -83,9 +98,9 @@ static_assert(kTile % kRollThreads == 0 && kRollThreads % kSlice == 0,
 constexpr int kCompactThreads = 128;              // 4 slices per block
 constexpr int kSlicesPerBlock = kCompactThreads / kSlice;
 
-template <typename T, int KC>
+template <typename V, typename T, int KC>
 __global__ void __launch_bounds__(kRollThreads)
-wjd_spmm_roll_kernel(const T* __restrict__ data,
+wjd_spmm_roll_kernel(const V* __restrict__ data,
                      const int32_t* __restrict__ brow,
                      const int32_t* __restrict__ diag_u,
                      const T* __restrict__ xp, T* __restrict__ y, int K) {
@@ -105,7 +120,7 @@ wjd_spmm_roll_kernel(const T* __restrict__ data,
   // slot (t, k) reads X rows brow*128 + s*128 + l + u = brow*128 + r + u.
   // The next slot's operands are loaded before this slot's reads of X
   // start, so that the two latencies overlap.
-  T v_next = __ldcs(data + slot0 * kTile + r0 + lane);
+  T v_next = widen(__ldcs(data + slot0 * kTile + r0 + lane));
   int64_t x_next =
       static_cast<int64_t>(__ldg(brow + slot0)) * 128 + r0 + __ldg(diag_u + slot0);
   for (int k = 0; k < K; ++k) {
@@ -113,7 +128,7 @@ wjd_spmm_roll_kernel(const T* __restrict__ data,
     const T* __restrict__ xs = xp + (x_next + h) * KC + c;
     if (k + 1 < K) {
       const int64_t slot = slot0 + k + 1;
-      v_next = __ldcs(data + slot * kTile + r0 + lane);
+      v_next = widen(__ldcs(data + slot * kTile + r0 + lane));
       x_next = static_cast<int64_t>(__ldg(brow + slot)) * 128 + r0 +
                __ldg(diag_u + slot);
     }
@@ -137,34 +152,34 @@ struct RollArgs {
   void* stream;
 };
 
-template <typename T, int KC>
+template <typename V, typename T, int KC>
 int go_roll(const RollArgs& a) {
   const int64_t blocks = a.tp * (kTile / kRollThreads);
-  wjd_spmm_roll_kernel<T, KC>
+  wjd_spmm_roll_kernel<V, T, KC>
       <<<static_cast<unsigned>(blocks), kRollThreads, 0,
          static_cast<cudaStream_t>(a.stream)>>>(
-          static_cast<const T*>(a.data), static_cast<const int32_t*>(a.brow),
+          static_cast<const V*>(a.data), static_cast<const int32_t*>(a.brow),
           static_cast<const int32_t*>(a.diag_u), static_cast<const T*>(a.xp),
           static_cast<T*>(a.y), a.k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_roll(const RollArgs& a, int kc) {
   if (a.tp <= 0 || a.k <= 0 ||
       a.tp * (kTile / kRollThreads) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (kc) {
-    case 4: return go_roll<T, 4>(a);
-    case 8: return go_roll<T, 8>(a);
-    case 16: return go_roll<T, 16>(a);
+    case 4: return go_roll<V, T, 4>(a);
+    case 8: return go_roll<V, T, 8>(a);
+    case 16: return go_roll<V, T, 16>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, typename O, int KC>
+template <typename V, typename T, typename O, int KC>
 __global__ void __launch_bounds__(kCompactThreads)
-wjd_compact_spmm_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
+wjd_compact_spmm_kernel(const V* __restrict__ cval, const O* __restrict__ coff,
                         const int64_t* __restrict__ slice_ptr,
                         const int64_t* __restrict__ xbase,
                         const T* __restrict__ xp, T* __restrict__ y,
@@ -188,14 +203,14 @@ wjd_compact_spmm_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
   T v_next = T(0);
   int o_next = 0;
   if (p < end) {
-    v_next = __ldcs(cval + p);
+    v_next = widen(__ldcs(cval + p));
     o_next = static_cast<int>(__ldcs(coff + p));
   }
   for (; p < end; p += kSlice) {
     const T v = v_next;
     const int o = o_next;
     if (p + kSlice < end) {
-      v_next = __ldcs(cval + p + kSlice);
+      v_next = widen(__ldcs(cval + p + kSlice));
       o_next = static_cast<int>(__ldcs(coff + p + kSlice));
     }
 #pragma unroll
@@ -219,36 +234,36 @@ struct CompactArgs {
   void* stream;
 };
 
-template <typename T, typename O, int KC>
+template <typename V, typename T, typename O, int KC>
 int go_compact(const CompactArgs& a) {
   const int64_t blocks = (a.nslices + kSlicesPerBlock - 1) / kSlicesPerBlock;
-  wjd_compact_spmm_kernel<T, O, KC>
+  wjd_compact_spmm_kernel<V, T, O, KC>
       <<<static_cast<unsigned>(blocks), kCompactThreads, 0,
          static_cast<cudaStream_t>(a.stream)>>>(
-          static_cast<const T*>(a.cval), static_cast<const O*>(a.coff),
+          static_cast<const V*>(a.cval), static_cast<const O*>(a.coff),
           static_cast<const int64_t*>(a.slice_ptr),
           static_cast<const int64_t*>(a.xbase), static_cast<const T*>(a.xp),
           static_cast<T*>(a.y), a.nslices);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O>
+template <typename V, typename T, typename O>
 int compact_by_width(const CompactArgs& a, int kc) {
   switch (kc) {
-    case 4: return go_compact<T, O, 4>(a);
-    case 8: return go_compact<T, O, 8>(a);
-    case 16: return go_compact<T, O, 16>(a);
+    case 4: return go_compact<V, T, O, 4>(a);
+    case 8: return go_compact<V, T, O, 8>(a);
+    case 16: return go_compact<V, T, O, 16>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_gather(const CompactArgs& a, int coff_bytes, int kc) {
   if (a.nslices <= 0 ||
       (a.nslices + kSlicesPerBlock - 1) / kSlicesPerBlock > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (coff_bytes == 2) return compact_by_width<T, uint16_t>(a, kc);
-  if (coff_bytes == 4) return compact_by_width<T, int32_t>(a, kc);
+  if (coff_bytes == 2) return compact_by_width<V, T, uint16_t>(a, kc);
+  if (coff_bytes == 4) return compact_by_width<V, T, int32_t>(a, kc);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -261,27 +276,35 @@ int launch_gather(const CompactArgs& a, int coff_bytes, int kc) {
 // Gather: the compact slice form (values, offsets of coff_bytes 2 or 4 each,
 // slice_ptr of nslices + 1 and xbase of nslices int64 entries); y has
 // nslices*32 rows.
+// The bf16 entry points take bfloat16 values and an f32 xp and y.
 extern "C" {
 
 int wjd_spmm_roll_f64(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k, int kc,
                       void* stream) {
-  return launch_roll<double>(RollArgs{data, brow, diag_u, xp, y, tp, k, stream},
-                             kc);
+  return launch_roll<double, double>(
+      RollArgs{data, brow, diag_u, xp, y, tp, k, stream}, kc);
 }
 
 int wjd_spmm_roll_f32(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k, int kc,
                       void* stream) {
-  return launch_roll<float>(RollArgs{data, brow, diag_u, xp, y, tp, k, stream},
-                            kc);
+  return launch_roll<float, float>(
+      RollArgs{data, brow, diag_u, xp, y, tp, k, stream}, kc);
+}
+
+int wjd_spmm_roll_bf16(const void* data, const void* brow, const void* diag_u,
+                       const void* xp, void* y, int64_t tp, int k, int kc,
+                       void* stream) {
+  return launch_roll<__nv_bfloat16, float>(
+      RollArgs{data, brow, diag_u, xp, y, tp, k, stream}, kc);
 }
 
 int wjd_spmm_gather_f64(const void* cval, const void* coff, int coff_bytes,
                         const void* slice_ptr, const void* xbase,
                         const void* xp, void* y, int64_t nslices, int kc,
                         void* stream) {
-  return launch_gather<double>(
+  return launch_gather<double, double>(
       CompactArgs{cval, coff, slice_ptr, xbase, xp, y, nslices, stream},
       coff_bytes, kc);
 }
@@ -290,7 +313,16 @@ int wjd_spmm_gather_f32(const void* cval, const void* coff, int coff_bytes,
                         const void* slice_ptr, const void* xbase,
                         const void* xp, void* y, int64_t nslices, int kc,
                         void* stream) {
-  return launch_gather<float>(
+  return launch_gather<float, float>(
+      CompactArgs{cval, coff, slice_ptr, xbase, xp, y, nslices, stream},
+      coff_bytes, kc);
+}
+
+int wjd_spmm_gather_bf16(const void* cval, const void* coff, int coff_bytes,
+                         const void* slice_ptr, const void* xbase,
+                         const void* xp, void* y, int64_t nslices, int kc,
+                         void* stream) {
+  return launch_gather<__nv_bfloat16, float>(
       CompactArgs{cval, coff, slice_ptr, xbase, xp, y, nslices, stream},
       coff_bytes, kc);
 }

@@ -4,8 +4,16 @@
 //
 //   wjd_spmv_roll_f64    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_ff
 //   wjd_spmv_roll_f32    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll
+//   wjd_spmv_roll_bf16   the same, on bfloat16 values
 //   wjd_spmv_gather_f64  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_ff
 //   wjd_spmv_gather_f32  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel
+//   wjd_spmv_gather_bf16 the same, on bfloat16 values
+//
+// Each kernel takes the type V of the values apart from the type T of x,
+// the sums and y: V = T for f64 and f32; V = bfloat16 with T = float for
+// the bf16 entry points, as the JAX kernels widen bfloat16 values to their
+// f32 accumulator (acc_dt). Such a plan streams 2 bytes a value where f32
+// streams 4; its x and y are f32.
 //
 // Semantics (wjd_reference): element (t, k, s, l) of slot (t, k) multiplies
 // xp[(brow[t,k] + s) * 128 + l + u], with u = diag_u[t,k] in roll mode and
@@ -54,9 +62,17 @@
 // Tp*K*1024 passes 2^31 at about 16M rows.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// a value in the type of the sums: bfloat16 widens to float (exact)
+template <typename V>
+__device__ __forceinline__ V widen(V v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kTile = 1024;                       // rows per tile
 constexpr int kThreads = 256;                     // rows per block
@@ -65,9 +81,9 @@ constexpr int kSlice = 32;                        // rows per compact slice
 constexpr int kCompactThreads = 512;              // 16 slices per block
 constexpr int kSlicesPerBlock = kCompactThreads / kSlice;
 
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(kThreads)
-wjd_roll_kernel(const T* __restrict__ data, const int32_t* __restrict__ brow,
+wjd_roll_kernel(const V* __restrict__ data, const int32_t* __restrict__ brow,
                 const int32_t* __restrict__ diag_u, const T* __restrict__ xp,
                 T* __restrict__ y, int K) {
   const int64_t t = blockIdx.x / kBlocksPerTile;
@@ -82,28 +98,28 @@ wjd_roll_kernel(const T* __restrict__ data, const int32_t* __restrict__ brow,
     const int u = __ldg(diag_u + slot);
     const int64_t xi =
         (static_cast<int64_t>(__ldg(brow + slot)) + s) * 128 + l + u;
-    acc += __ldg(data + e) * __ldg(xp + xi);
+    acc += widen(__ldg(data + e)) * __ldg(xp + xi);
   }
   y[t * kTile + r] = acc;
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_roll(const void* data, const void* brow, const void* diag_u,
                 const void* xp, void* y, int64_t tp, int k, void* stream) {
   if (tp <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = tp * kBlocksPerTile;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  wjd_roll_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int32_t*>(brow),
+  wjd_roll_kernel<V, T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(data), static_cast<const int32_t*>(brow),
       static_cast<const int32_t*>(diag_u), static_cast<const T*>(xp),
       static_cast<T*>(y), k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O>
+template <typename V, typename T, typename O>
 __global__ void __launch_bounds__(kCompactThreads)
-wjd_compact_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
+wjd_compact_kernel(const V* __restrict__ cval, const O* __restrict__ coff,
                    const int64_t* __restrict__ slice_ptr,
                    const int64_t* __restrict__ xbase,
                    const T* __restrict__ xp, T* __restrict__ y,
@@ -117,36 +133,37 @@ wjd_compact_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
   T acc = T(0);
 #pragma unroll 8
   for (int64_t p = __ldg(slice_ptr + slice) + lane; p < end; p += kSlice)
-    acc += __ldcs(cval + p) * __ldg(xs + __ldcs(coff + p));
+    acc += widen(__ldcs(cval + p)) * __ldg(xs + __ldcs(coff + p));
   y[slice * kSlice + lane] = acc;
 }
 
-template <typename T, typename O>
+template <typename V, typename T, typename O>
 int launch_compact(const void* cval, const void* coff, const void* slice_ptr,
                    const void* xbase, const void* xp, void* y,
                    int64_t nslices, void* stream) {
   const int64_t blocks = (nslices + kSlicesPerBlock - 1) / kSlicesPerBlock;
   if (nslices <= 0 || blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  wjd_compact_kernel<T, O><<<static_cast<unsigned>(blocks), kCompactThreads,
-                             0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(cval), static_cast<const O*>(coff),
+  wjd_compact_kernel<V, T, O><<<static_cast<unsigned>(blocks),
+                                kCompactThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(cval), static_cast<const O*>(coff),
       static_cast<const int64_t*>(slice_ptr),
       static_cast<const int64_t*>(xbase), static_cast<const T*>(xp),
       static_cast<T*>(y), nslices);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_gather(const void* cval, const void* coff, int coff_bytes,
                   const void* slice_ptr, const void* xbase, const void* xp,
                   void* y, int64_t nslices, void* stream) {
   if (coff_bytes == 2)
-    return launch_compact<T, uint16_t>(cval, coff, slice_ptr, xbase, xp, y,
-                                       nslices, stream);
+    return launch_compact<V, T, uint16_t>(cval, coff, slice_ptr, xbase, xp,
+                                          y, nslices, stream);
   if (coff_bytes == 4)
-    return launch_compact<T, int32_t>(cval, coff, slice_ptr, xbase, xp, y,
-                                      nslices, stream);
+    return launch_compact<V, T, int32_t>(cval, coff, slice_ptr, xbase, xp,
+                                         y, nslices, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -156,34 +173,52 @@ int launch_gather(const void* cval, const void* coff, int coff_bytes,
 // after the launch: 0 on success. The gather entry points take the compact
 // slice form: values, offsets of coff_bytes (2 or 4) each, slice_ptr
 // (nslices + 1, int64), xbase (nslices, int64); y has nslices*32 rows.
+// The bf16 entry points take bfloat16 values and an f32 x and y.
 extern "C" {
 
 int wjd_spmv_roll_f64(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k,
                       void* stream) {
-  return launch_roll<double>(data, brow, diag_u, xp, y, tp, k, stream);
+  return launch_roll<double, double>(data, brow, diag_u, xp, y, tp, k,
+                                     stream);
 }
 
 int wjd_spmv_roll_f32(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k,
                       void* stream) {
-  return launch_roll<float>(data, brow, diag_u, xp, y, tp, k, stream);
+  return launch_roll<float, float>(data, brow, diag_u, xp, y, tp, k, stream);
+}
+
+int wjd_spmv_roll_bf16(const void* data, const void* brow, const void* diag_u,
+                       const void* xp, void* y, int64_t tp, int k,
+                       void* stream) {
+  return launch_roll<__nv_bfloat16, float>(data, brow, diag_u, xp, y, tp, k,
+                                           stream);
 }
 
 int wjd_spmv_gather_f64(const void* cval, const void* coff, int coff_bytes,
                         const void* slice_ptr, const void* xbase,
                         const void* xp, void* y, int64_t nslices,
                         void* stream) {
-  return launch_gather<double>(cval, coff, coff_bytes, slice_ptr, xbase, xp,
-                               y, nslices, stream);
+  return launch_gather<double, double>(cval, coff, coff_bytes, slice_ptr,
+                                       xbase, xp, y, nslices, stream);
 }
 
 int wjd_spmv_gather_f32(const void* cval, const void* coff, int coff_bytes,
                         const void* slice_ptr, const void* xbase,
                         const void* xp, void* y, int64_t nslices,
                         void* stream) {
-  return launch_gather<float>(cval, coff, coff_bytes, slice_ptr, xbase, xp,
-                              y, nslices, stream);
+  return launch_gather<float, float>(cval, coff, coff_bytes, slice_ptr,
+                                     xbase, xp, y, nslices, stream);
+}
+
+int wjd_spmv_gather_bf16(const void* cval, const void* coff, int coff_bytes,
+                         const void* slice_ptr, const void* xbase,
+                         const void* xp, void* y, int64_t nslices,
+                         void* stream) {
+  return launch_gather<__nv_bfloat16, float>(cval, coff, coff_bytes,
+                                             slice_ptr, xbase, xp, y,
+                                             nslices, stream);
 }
 
 }  // extern "C"

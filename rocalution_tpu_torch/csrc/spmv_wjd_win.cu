@@ -4,8 +4,14 @@
 // device memory and copy one (win_rows, 128) window of it per grid step:
 //
 //   wjd_spmv_win_gather_f32  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_hbm
+//   wjd_spmv_win_gather_bf16 the same, on bfloat16 values
 //   wjd_spmv_win_roll_f32    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_hbm
+//   wjd_spmv_win_roll_bf16   the same, on bfloat16 values
 //   wjd_spmv_win_roll_f64    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_ff_hbm
+//
+// As in csrc/spmv_wjd.cu, the type V of the values is apart from the type T
+// of x, the sums and y: the bf16 entry points widen bfloat16 values into f32
+// sums over an f32 x, as the JAX kernels do.
 //
 // Semantics: those of the direct kernels (csrc/spmv_wjd.cu), with x read
 // only through the window of the tile's grid step. Step i = t / group owns
@@ -54,17 +60,25 @@
 // Element offsets are 64-bit.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// a value in the type of the sums: bfloat16 widens to float (exact)
+template <typename V>
+__device__ __forceinline__ V widen(V v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kTile = 1024;                       // rows per tile
 constexpr int kThreads = 256;                     // rows per block
 constexpr int kBlocksPerTile = kTile / kThreads;
 
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(kThreads)
-wjd_slots_win_kernel(const T* __restrict__ data,
+wjd_slots_win_kernel(const V* __restrict__ data,
                      const int32_t* __restrict__ brow,
                      const int32_t* __restrict__ diag_u,
                      const int32_t* __restrict__ win_base,
@@ -86,12 +100,12 @@ wjd_slots_win_kernel(const T* __restrict__ data,
     const int u = __ldg(diag_u + slot);
     const int64_t xi =
         (static_cast<int64_t>(__ldg(brow + slot) - wb) + s) * 128 + l + u;
-    acc += __ldg(data + e) * __ldg(xw + xi);
+    acc += widen(__ldg(data + e)) * __ldg(xw + xi);
   }
   y[t * kTile + r] = acc;
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch(const void* data, const void* brow, const void* diag_u,
            const void* win_base, const void* xp, void* y, int64_t tp, int k,
            int group, int win_rows, void* stream) {
@@ -99,10 +113,10 @@ int launch(const void* data, const void* brow, const void* diag_u,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = tp * kBlocksPerTile;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  wjd_slots_win_kernel<T>
+  wjd_slots_win_kernel<V, T>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(data), static_cast<const int32_t*>(brow),
+          static_cast<const V*>(data), static_cast<const int32_t*>(brow),
           static_cast<const int32_t*>(diag_u),
           static_cast<const int32_t*>(win_base), static_cast<const T*>(xp),
           static_cast<T*>(y), k, group);
@@ -117,9 +131,9 @@ constexpr int kWinMinBlocks = 2;           // blocks an SM should hold
 constexpr int kUnroll = 8;                 // ranks in flight a thread
 static_assert(kWinThreads % kSlice == 0, "a block holds whole warps");
 
-template <typename T, typename O>
+template <typename V, typename T, typename O>
 __global__ void __launch_bounds__(kWinThreads, kWinMinBlocks)
-wjd_compact_win_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
+wjd_compact_win_kernel(const V* __restrict__ cval, const O* __restrict__ coff,
                        const int64_t* __restrict__ slice_ptr,
                        const int32_t* __restrict__ win_base,
                        const T* __restrict__ xp, T* __restrict__ y,
@@ -145,7 +159,7 @@ wjd_compact_win_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
         const int64_t q = p + j * kSlice;
-        v[j] = q < end ? __ldcs(cval + q) : T(0);
+        v[j] = q < end ? widen(__ldcs(cval + q)) : T(0);
         o[j] = q < end ? static_cast<int>(__ldcs(coff + q)) : 0;
       }
 #pragma unroll
@@ -157,21 +171,38 @@ wjd_compact_win_kernel(const T* __restrict__ cval, const O* __restrict__ coff,
   }
 }
 
-template <typename T, typename O>
+template <typename V, typename T, typename O>
 int launch_compact_win(const void* cval, const void* coff,
                        const void* slice_ptr, const void* win_base,
                        const void* xp, void* y, int64_t nsteps,
                        int slices_per_step, void* stream) {
   if (nsteps <= 0 || nsteps > 0x7fffffffLL || slices_per_step <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  wjd_compact_win_kernel<T, O>
+  wjd_compact_win_kernel<V, T, O>
       <<<static_cast<unsigned>(nsteps), kWinThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(cval), static_cast<const O*>(coff),
+          static_cast<const V*>(cval), static_cast<const O*>(coff),
           static_cast<const int64_t*>(slice_ptr),
           static_cast<const int32_t*>(win_base), static_cast<const T*>(xp),
           static_cast<T*>(y), slices_per_step);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the gather kernel for values V over an f32 x, by width of offset
+template <typename V>
+int launch_gather_win(const void* cval, const void* coff, int coff_bytes,
+                      const void* slice_ptr, const void* win_base,
+                      const void* xp, void* y, int64_t nsteps,
+                      int slices_per_step, void* stream) {
+  if (coff_bytes == 2)
+    return launch_compact_win<V, float, uint16_t>(
+        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
+        stream);
+  if (coff_bytes == 4)
+    return launch_compact_win<V, float, int32_t>(
+        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
+        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -180,23 +211,32 @@ int launch_compact_win(const void* cval, const void* coff,
 // after the launch: 0 on success. The gather entry point takes the
 // window-relative compact slice form: values, offsets of coff_bytes (2 or 4)
 // each, slice_ptr (nsteps*slices_per_step + 1, int64), win_base (nsteps,
-// int32); y has nsteps*slices_per_step*32 rows.
+// int32); y has nsteps*slices_per_step*32 rows. The bf16 entry points take
+// bfloat16 values and an f32 x and y.
 extern "C" {
 
 int wjd_spmv_win_roll_f64(const void* data, const void* brow,
                           const void* diag_u, const void* win_base,
                           const void* xp, void* y, int64_t tp, int k,
                           int group, int win_rows, void* stream) {
-  return launch<double>(data, brow, diag_u, win_base, xp, y, tp, k, group,
-                        win_rows, stream);
+  return launch<double, double>(data, brow, diag_u, win_base, xp, y, tp, k,
+                                group, win_rows, stream);
 }
 
 int wjd_spmv_win_roll_f32(const void* data, const void* brow,
                           const void* diag_u, const void* win_base,
                           const void* xp, void* y, int64_t tp, int k,
                           int group, int win_rows, void* stream) {
-  return launch<float>(data, brow, diag_u, win_base, xp, y, tp, k, group,
-                       win_rows, stream);
+  return launch<float, float>(data, brow, diag_u, win_base, xp, y, tp, k,
+                              group, win_rows, stream);
+}
+
+int wjd_spmv_win_roll_bf16(const void* data, const void* brow,
+                           const void* diag_u, const void* win_base,
+                           const void* xp, void* y, int64_t tp, int k,
+                           int group, int win_rows, void* stream) {
+  return launch<__nv_bfloat16, float>(data, brow, diag_u, win_base, xp, y,
+                                      tp, k, group, win_rows, stream);
 }
 
 int wjd_spmv_win_gather_f32(const void* cval, const void* coff,
@@ -204,15 +244,18 @@ int wjd_spmv_win_gather_f32(const void* cval, const void* coff,
                             const void* win_base, const void* xp, void* y,
                             int64_t nsteps, int slices_per_step,
                             void* stream) {
-  if (coff_bytes == 2)
-    return launch_compact_win<float, uint16_t>(
-        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
-        stream);
-  if (coff_bytes == 4)
-    return launch_compact_win<float, int32_t>(
-        cval, coff, slice_ptr, win_base, xp, y, nsteps, slices_per_step,
-        stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gather_win<float>(cval, coff, coff_bytes, slice_ptr, win_base,
+                                  xp, y, nsteps, slices_per_step, stream);
+}
+
+int wjd_spmv_win_gather_bf16(const void* cval, const void* coff,
+                             int coff_bytes, const void* slice_ptr,
+                             const void* win_base, const void* xp, void* y,
+                             int64_t nsteps, int slices_per_step,
+                             void* stream) {
+  return launch_gather_win<__nv_bfloat16>(cval, coff, coff_bytes, slice_ptr,
+                                          win_base, xp, y, nsteps,
+                                          slices_per_step, stream);
 }
 
 }  // extern "C"

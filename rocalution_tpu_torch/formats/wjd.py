@@ -69,6 +69,22 @@ TILE = 1024          # rows per tile
 SLICE = 32           # rows per slice of the compact form: one warp
 
 
+def _is_bf16(values_dtype) -> bool:
+    """Does `values_dtype` ask for bfloat16 values? None keeps the CSR's."""
+    if values_dtype is None:
+        return False
+    if values_dtype in ("bfloat16", torch.bfloat16):
+        return True
+    raise ValueError(f"values_dtype must be None or 'bfloat16', got "
+                     f"{values_dtype!r}")
+
+
+def _round_to_bf16(a: np.ndarray) -> np.ndarray:
+    """The values of `a` rounded to bfloat16 by torch's cast, as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.bfloat16).float().numpy()
+
+
 def _load_rows(nj: int) -> int:
     """Sublane rows the TPU kernel loads per window (sizes xp_len)."""
     return -(-(8 + nj) // 8) * 8
@@ -78,8 +94,8 @@ def _load_rows(nj: int) -> int:
 class WJD(MatrixBase):
     """Windowed jagged-diagonal matrix (see module docstring)."""
 
-    # (Tp, K, 8, 128) slot values, f32 or f64; None where a gather-mode
-    # plan on the card is served from its compact form alone
+    # (Tp, K, 8, 128) slot values, f32, f64 or bf16; None where a
+    # gather-mode plan on the card is served from its compact form alone
     data: Optional[torch.Tensor]
     brow: torch.Tensor       # (Tp, K) int32 window base row into padded x
     diag_u: torch.Tensor     # (Tp, K) int32: constant u of diagonal slots, -1 else
@@ -116,6 +132,12 @@ class WJD(MatrixBase):
         return (self.cval if self.data is None else self.data).dtype
 
     @property
+    def x_dtype(self) -> torch.dtype:
+        """dtype of x, the sums and y: the values' own, but f32 for
+        bfloat16 values (the JAX kernels' f32 accumulator)."""
+        return torch.float32 if self.dtype == torch.bfloat16 else self.dtype
+
+    @property
     def device(self) -> torch.device:
         return (self.cval if self.data is None else self.data).device
 
@@ -147,13 +169,24 @@ _FF_COST_ROLL = 18.0
 def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                     max_slots: Optional[int] = 128,
                     kernel_mode: str = "auto",
-                    split_dia=False) -> dict:
+                    values_dtype=None, split_dia=False) -> dict:
     """Host-side CSR -> WJD *plan* (numpy arrays + static fields only).
 
     ``max_slots`` caps slots per tile; entries in hotter slots spill to a
     COO tail. ``kernel_mode``: "gather" | "roll" | "auto" ("auto" picks by
     the per-slot cost model). ``split_dia``: move globally dense diagonals
     to a DIA part ("auto" = f32 values only, the JAX package's default).
+
+    ``values_dtype="bfloat16"``: store the slot values, the spill and the
+    DIA part in bfloat16, half the bytes of f32; x, the sums and y stay
+    f32 (~1e-3 relative accuracy), for the inner operator of
+    MixedPrecisionDC or accuracy-tolerant applies. The layout is planned
+    from the values as given and they are rounded afterwards, as the JAX
+    package does. numpy has no bfloat16, so the plan's host arrays are f32
+    arrays holding the rounded values, with ``value_dtype="bfloat16"``;
+    `_plan_to_wjd` casts them to torch.bfloat16 at upload, exactly. The
+    rounding is torch's cast, which takes an f64 value through f32 as
+    ml_dtypes does: the bits equal the JAX planner's.
 
     A deliberate difference from the JAX package: the port's default keeps
     every diagonal in the slots, on every device. The reference's "auto"
@@ -163,6 +196,7 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
     for less (f32 CG + SA-AMG, ROADMAP.md section 3, fault 6).
     """
     n, m = int(shape[0]), int(shape[1])
+    bf16 = _is_bf16(values_dtype)
     vals = np.asarray(vals)
     cols = np.asarray(cols, dtype=np.int64)
     indptr = np.asarray(indptr, dtype=np.int64)
@@ -192,16 +226,26 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
             vals, cols, rows = vals[keep], cols[keep], rows[keep]
             nnz = len(vals)
 
-    def _finish(plan_out):
+    def _finish(plan_out, slots=True):
         plan_out["dia_data"] = dia_data
         plan_out["dia_offsets"] = dia_offsets
+        if bf16:
+            # as the JAX planner: an empty slot plan keeps its values' dtype
+            # (its planes are zeros), and only the DIA part is rounded
+            keys = ("data", "spill_val", "dia_data") if slots \
+                else ("dia_data",)
+            for key in keys:
+                if plan_out[key] is not None:
+                    plan_out[key] = _round_to_bf16(plan_out[key])
+            if slots:
+                plan_out["value_dtype"] = "bfloat16"
         return plan_out
 
     if nnz == 0:
         empty = np.zeros(0, np.int64)
         return _finish(_assemble(
             vals, empty, empty, empty, empty, 1, n, m, 0, 8,
-            spill=(empty, empty, vals), slot_info=None))
+            spill=(empty, empty, vals), slot_info=None), slots=False)
 
     d = cols - rows
     t = rows >> 10
@@ -647,7 +691,9 @@ def windowed(A: WJD, dtype: torch.dtype) -> bool:
     """Does an x of `dtype` take the windowed kernels on this plan? The JAX
     package's rule for which kernel runs: the padded x plane passes
     X_VMEM_BUDGET and the plan carries windows; gather mode has a windowed
-    kernel in f32 only, so gather-mode f64 stays on the direct kernel. For
+    kernel for an f32 x only (f32 or bfloat16 values), so gather-mode f64
+    stays on the direct kernel. A bfloat16 x is widened to f32 before the
+    rule is read (ops/cuda/spmv_wjd.py), so it takes an f32 x's kernel. For
     a gather plan the rule was applied when its compact form was built
     (`_plan_to_wjd`), and `window_relative` holds the answer: the layout
     and the kernel that reads it cannot disagree."""
@@ -663,6 +709,10 @@ def _window_regime(has_windows, xp_len, mode, itemsize, is_f32) -> bool:
     return mode == "roll" or is_f32
 
 
+# the value arrays of a plan: bfloat16 on the WJD of a bfloat16 plan
+_VALUES = ("data", "cval", "spill_val", "dia_data")
+
+
 def _plan_to_wjd(plan: dict, device) -> WJD:
     """Materialize a host plan as a WJD on ``device`` (one upload per
     array), after checking that no slot load leaves padded x or, where
@@ -676,7 +726,10 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         if plan.get("win_base") is not None:
             _check_windows(plan, reach)
     skip = ()
+    bf16 = plan.get("value_dtype") == "bfloat16"
     if plan["kernel_mode"] == "gather":
+        # the regime follows x, whose dtype is the host values': f32 for a
+        # bfloat16 plan too, whose values are f32 on the host
         vdt = np.asarray(plan["data"]).dtype
         compact = compact_slices(plan, window_relative=_window_regime(
             plan.get("win_base") is not None, int(plan["xp_len"]), "gather",
@@ -692,7 +745,8 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         a = plan.get(name)
         if a is None or name in skip:
             return None
-        return to_device(a, device, dt)
+        t = to_device(a, device, dt)
+        return t.to(torch.bfloat16) if bf16 and name in _VALUES else t
 
     return WJD(
         cval=put("cval"),

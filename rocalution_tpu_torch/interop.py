@@ -8,6 +8,7 @@ that is itself a matrix, such as ``HYB.ell``, becomes a dict of its own).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .config import resolve_device
 from .formats import BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD
@@ -27,10 +28,19 @@ def csr_from_numpy(data, indices, indptr, shape, device=None) -> CSR:
                            device=resolve_device(device))
 
 
+def _bf16_as_f32(a: np.ndarray) -> np.ndarray:
+    """An ml_dtypes bfloat16 array as f32, taken by its bits (exact)."""
+    bits = torch.from_numpy(np.array(a).view(np.uint16).view(np.int16))
+    return bits.view(torch.bfloat16).float().numpy()
+
+
 def wjd_from_numpy(fields: dict, device=None) -> WJD:
     """WJD on ``device`` from the JAX ``WJD``'s fields as numpy. An f64
     float-float operand arrives as f32 ``data`` (hi) + ``data_lo`` (lo)
-    planes and becomes one f64 plane, hi + lo (a sum f64 holds exactly)."""
+    planes and becomes one f64 plane, hi + lo (a sum f64 holds exactly).
+    A bfloat16 operand's value arrays (ml_dtypes, recognised by the dtype's
+    name) become the port's host form of a bfloat16 plan: f32 arrays of
+    the same values, with ``value_dtype="bfloat16"``."""
     plan = {k: (None if fields.get(k) is None else np.asarray(fields[k]))
             for k in _WJD_ARRAYS}
     plan.update({k: fields[k] for k in _WJD_STATICS if k in fields})
@@ -38,6 +48,11 @@ def wjd_from_numpy(fields: dict, device=None) -> WJD:
     if lo is not None:
         plan["data"] = plan["data"].astype(np.float64) + np.asarray(
             lo).astype(np.float64)
+    if plan["data"].dtype.name == "bfloat16":
+        for key in ("data", "spill_val", "dia_data"):
+            if plan[key] is not None:
+                plan[key] = _bf16_as_f32(plan[key])
+        plan["value_dtype"] = "bfloat16"
     return _plan_to_wjd(plan, device=resolve_device(device))
 
 

@@ -19,6 +19,12 @@ kernels are templated CUDA kernels in three sources here:
 See those files for the designs. The wrappers pad x, launch on the current
 stream, add the COO spill and the DIA part, and trim to n.
 
+Value types: f64 and f32, and bfloat16 for the kernels the JAX package
+runs on bfloat16 values (all but the two f64 ones): those take an f32 x
+and sum in f32 into an f32 y (its `acc_dt`). A bfloat16 x is widened to
+f32 first, which is exact and is the product the JAX kernels compute. The
+spill and the DIA part promote to f32 the same way.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 PyTorch version (``slots_plain*``), which is also the oracle the kernels
 are checked against on the card.
@@ -39,7 +45,9 @@ launches = {
     "roll_f64": 0, "gather_f64": 0, "roll_f32": 0, "gather_f32": 0,
     "win_roll_f64": 0, "win_roll_f32": 0, "win_gather_f32": 0,
     "spmm_roll_f64": 0, "spmm_gather_f64": 0, "spmm_roll_f32": 0,
-    "spmm_gather_f32": 0,
+    "spmm_gather_f32": 0, "roll_bf16": 0, "gather_bf16": 0,
+    "win_roll_bf16": 0, "win_gather_bf16": 0, "spmm_roll_bf16": 0,
+    "spmm_gather_bf16": 0,
 }
 
 # columns one SpMM launch serves; the kernel is instantiated for these
@@ -47,7 +55,8 @@ launches = {
 MRHS_MAX_COLS = 16
 _MRHS_WIDTHS = (4, 8, 16)
 
-_DTYPE_TAG = {torch.float64: "f64", torch.float32: "f32"}
+_DTYPE_TAG = {torch.float64: "f64", torch.float32: "f32",
+              torch.bfloat16: "bf16"}
 _COFF_DTYPES = (torch.uint16, torch.int32)
 _P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (library, prefix of the launch counters, argument types after the plan's
@@ -67,8 +76,8 @@ _SLOT_ARGS = [_P, _P, _P]           # data, brow, diag_u
 _COMPACT_ARGS = [_P, _P, _INT, _P, _P]
 _COMPACT_TAILS = {"spmv": ("spmv_wjd", "", [_P, _P, _I64, _P]),
                   "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _P])}
-# wjd_spmv_win_gather_f32: cval, coff, coff_bytes, slice_ptr, win_base, xp,
-# y, nsteps, slices a step, stream
+# wjd_spmv_win_gather_{f32,bf16}: cval, coff, coff_bytes, slice_ptr,
+# win_base, xp, y, nsteps, slices a step, stream
 _WIN_COMPACT_ARGS = [_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _P]
 
 
@@ -174,7 +183,8 @@ def _slot_index(A: WJD, base: torch.Tensor) -> torch.Tensor:
 
 def slots_plain(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Plain slot product: y[t,s,l] = sum_k data[t,k,s,l] *
-    xp[(brow[t,k] + s)*128 + l + u[t,k,s,l]], summed in the value type."""
+    xp[(brow[t,k] + s)*128 + l + u[t,k,s,l]], summed in x's type (f32
+    products of bfloat16 values, as torch promotes them)."""
     return (A.data * xp[_slot_index(A, A.brow.long())]).sum(dim=1)
 
 
@@ -253,13 +263,14 @@ def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
     """Raise unless the kernels take these operands (the plan's slot
-    planes, or its compact slice form); return the dtype tag. The plan's
-    own tensors do not change, so they are checked once per plan and
-    form; xp is checked every call."""
+    planes, or its compact slice form); return the value type's tag. The
+    plan's own tensors do not change, so they are checked once per plan
+    and form; xp is checked every call."""
     tag = _DTYPE_TAG.get(A.dtype)
-    if tag is None or xp.dtype != A.dtype:
-        raise TypeError(f"WJD kernel takes f32/f64 values with x of the same "
-                        f"dtype, got {A.dtype} and {xp.dtype}")
+    if tag is None or xp.dtype != A.x_dtype:
+        raise TypeError(f"WJD kernel takes f64 or f32 values with x of the "
+                        f"same dtype, or bf16 values with an f32 x, got "
+                        f"{A.dtype} and {xp.dtype}")
     if not xp.is_cuda:
         raise ValueError("WJD kernels take CUDA tensors only")
     if not xp.is_contiguous():
@@ -328,7 +339,7 @@ def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Slot product through the windowed kernel (CUDA tensors only): over
     the slot planes in roll mode, over the window-relative compact form in
-    gather mode (f32 only)."""
+    gather mode (f32 or bf16 values only)."""
     compact = A.kernel_mode == "gather"
     tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
@@ -345,11 +356,11 @@ def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
         _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
                 y.data_ptr(), Tp, K, A.group, A.win_rows)
         return y
-    if tag != "f32":
-        raise TypeError("gather mode has a windowed kernel in f32 only")
+    if tag == "f64":
+        raise TypeError("gather mode has no windowed kernel for f64 values")
     _check_window_relative(A)
-    _call("spmv_wjd_win", "wjd_spmv_win_gather_f32", _WIN_COMPACT_ARGS,
-          "win_gather_f32", xp, A.cval.data_ptr(), A.coff.data_ptr(),
+    _call("spmv_wjd_win", f"wjd_spmv_win_gather_{tag}", _WIN_COMPACT_ARGS,
+          f"win_gather_{tag}", xp, A.cval.data_ptr(), A.coff.data_ptr(),
           A.coff.element_size(), A.slice_ptr.data_ptr(), wb.data_ptr(),
           xp.data_ptr(), y.data_ptr(), wb.numel(),
           A.group * (TILE // SLICE))
@@ -377,19 +388,26 @@ def slots_kernel_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _check_x(A: WJD, x: torch.Tensor, dim: int) -> None:
+def _x_of(A: WJD, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x as the plan takes it: of the plan's x dtype (a bfloat16 x where
+    that is f32 is widened to it, exactly); raise on a shape, dtype or
+    device the plan does not take."""
     m = A.shape[1]
     if x.dim() != dim or x.shape[0] != m:
         want = f"({m},)" if dim == 1 else f"({m}, k)"
         raise ValueError(f"x must have shape {want}, got {tuple(x.shape)}")
-    if x.dtype != A.dtype or x.device != A.device:
+    xdt = A.x_dtype
+    if x.dtype == torch.bfloat16 and xdt == torch.float32:
+        x = x.float()
+    if x.dtype != xdt or x.device != A.device:
         raise TypeError(f"x ({x.dtype}, {x.device}) does not match the WJD "
                         f"operand ({A.dtype}, {A.device})")
+    return x
 
 
 def _apply(A: WJD, x: torch.Tensor, slots) -> torch.Tensor:
     n = A.shape[0]
-    _check_x(A, x, 1)
+    x = _x_of(A, x, 1)
     if A.nnz == 0:
         y = x.new_zeros(n)
     else:
@@ -407,7 +425,7 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
     """The reference's outer structure (`wjd_spmm`): DIA part, empty plan,
     column chunks of at most MRHS_MAX_COLS, COO spill, trim to n."""
     n = A.shape[0]
-    _check_x(A, X, 2)
+    X = _x_of(A, X, 2)
     k = X.shape[1]
     if A.nnz == 0 or k == 0:
         Y = X.new_zeros((n, k))
@@ -432,10 +450,11 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
     launches a kernel: the windowed one where the plan is in the windowed
-    regime (formats/wjd.py:`windowed`), else the direct one (gather mode: on the compact form, in
-    both). A CPU tensor takes the plain version of the same."""
+    regime (formats/wjd.py:`windowed`), else the direct one (gather mode:
+    on the compact form, in both). A CPU tensor takes the plain version of
+    the same. y has the plan's x dtype (f32 for bfloat16 values)."""
     gather = A.kernel_mode == "gather"
-    if windowed(A, x.dtype):
+    if windowed(A, A.x_dtype):
         if x.is_cuda:
             slots = slots_kernel_windowed
         else:

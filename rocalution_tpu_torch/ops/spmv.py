@@ -64,10 +64,13 @@ def _spmv_csr(A: CSR, x):
 
 
 def _use_kernel(wjd: WJD, xdt) -> bool:
-    """Can this WJD plan serve a rhs of dtype `xdt`? f32 x rides an f32
-    plan, f64 x an f64 plan (the JAX package's dtype rules)."""
-    if xdt in (torch.float32, torch.float64):
-        return wjd.dtype == xdt
+    """Can this WJD plan serve a rhs of dtype `xdt`? The JAX package's
+    `_use_pallas`: an f32 or bfloat16 x rides an f32 or bfloat16 plan, an
+    f64 x an f64 plan."""
+    if xdt in (torch.float32, torch.bfloat16):
+        return wjd.dtype in (torch.float32, torch.bfloat16)
+    if xdt == torch.float64:
+        return wjd.dtype == torch.float64
     return False
 
 
@@ -143,7 +146,9 @@ def attach_wjd(A: CSR, **kwargs) -> CSR:
     """Attach a WJD fast-apply plan to a host-built CSR (the analog of
     rocSPARSE csrmv analysis). Later `spmv(A, x)` calls on the SAME object
     go through the WJD kernels; kwargs go to the planner (``split_dia``,
-    ``kernel_mode``, ``max_slots``, ``wlog``). A failed plan raises."""
+    ``kernel_mode``, ``max_slots``, ``wlog``, ``values_dtype``: with
+    ``values_dtype="bfloat16"`` the plan holds bfloat16 values and serves
+    an f32 x with f32 sums). A failed plan raises."""
     from ..formats.wjd import from_csr
 
     object.__setattr__(A, "_wjd_cache", from_csr(A, **kwargs))

@@ -30,6 +30,7 @@ class ReductionOps(NamedTuple):
     dot_nonconj: Callable
     norm: Callable
     sum: Callable
+    allreduce: Callable          # identity: the reductions are local
     res_norm: Callable = blas1.norm
 
 
@@ -45,7 +46,7 @@ def make_reductions(axis_name: Optional[str],
     local = {1: blas1.asum, 2: blas1.norm, 3: blas1.amax_value}
     return ReductionOps(
         blas1.dot, blas1.dot_nonconj, blas1.norm, blas1.reduce_sum,
-        local[res_norm_type],
+        lambda v: v, local[res_norm_type],
     )
 
 
@@ -56,6 +57,14 @@ def select_tree(pred, on_true, on_false):
         return type(on_true)(*vals) if hasattr(on_true, "_fields") \
             else tuple(vals)
     return torch.where(pred, on_true, on_false)
+
+
+def guarded_check(ctrl, state, res):
+    """check_residual only while running: lets solvers with several checks
+    in one step (BiCGStab(l), IDR(s), QMRCGStab) freeze the state after
+    the first criterion hit, within the step."""
+    new = ctrl.check_residual(state, res)
+    return select_tree(state.running, new, state)
 
 
 def run_chunked(body: Callable, carry: Tuple, check_every: int) -> Tuple:
@@ -79,6 +88,19 @@ def safe_div(num, den):
 
 def identity_precond(r):
     return r
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.zeros((), dtype=dtype).real.dtype
+
+
+def host_normal(n: int, cols: int, seed: int) -> torch.Tensor:
+    """An (n, cols) standard normal draw in f64 on the host, from
+    torch.Generator().manual_seed(seed): the same numbers whatever device
+    the solve runs on. The JAX package draws with jax.random, whose
+    numbers torch cannot reproduce; a test hands the port JAX's draw."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn((n, cols), generator=gen, dtype=torch.float64)
 
 
 def operator_device(A) -> torch.device:

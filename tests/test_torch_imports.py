@@ -1,5 +1,6 @@
-"""Import hygiene of the port: it never imports jax or rocalution_tpu, and
-importing it builds no kernel and no native library."""
+"""Import hygiene of the port: it never imports jax, rocalution_tpu or
+ml_dtypes (the bfloat16 plans keep f32 host arrays and cast with torch),
+and importing it builds no kernel and no native library."""
 
 import ast
 import pathlib
@@ -10,7 +11,7 @@ import rocalution_tpu_torch as rt
 
 PKG = pathlib.Path(rt.__file__).resolve().parent
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "jaxlib", "rocalution_tpu")
+FORBIDDEN = ("jax", "jaxlib", "rocalution_tpu", "ml_dtypes")
 
 _PROBE = """
 import sys
@@ -23,7 +24,10 @@ from rocalution_tpu_torch import native
 from rocalution_tpu_torch.ops import factorize, ordering, spgemm, trisolve
 from rocalution_tpu_torch.precond import ilu, jacobi
 from rocalution_tpu_torch.solvers import mixed_precision
-from rocalution_tpu_torch.solvers.krylov import gmres
+from rocalution_tpu_torch.solvers.krylov import (bicgstab, bicgstabl, cr,
+                                                 fcg, gmres, idr, qmrcgstab)
+from rocalution_tpu_torch.solvers import chebyshev
+from rocalution_tpu_torch.ops import spectral
 from rocalution_tpu_torch.solvers import direct, fixed_point, multigrid
 from rocalution_tpu_torch.solvers.multigrid import aggregation, base
 from rocalution_tpu_torch.utils import log
@@ -62,7 +66,9 @@ def test_public_surface():
                  "set_default_device", "fixed_point", "fixed_point_sweeps",
                  "qr", "qr_factor", "lu", "lu_factor", "inversion",
                  "gmres", "fgmres", "mixed_precision_dc", "ilu", "ic",
-                 "itilu0", "convection_diffusion_2d", "fem_2d_unstructured"):
+                 "itilu0", "convection_diffusion_2d", "fem_2d_unstructured",
+                 "cr", "fcg", "bicgstab", "bicgstabl", "idr", "qmrcgstab",
+                 "chebyshev", "gershgorin", "power_method"):
         assert hasattr(rt, name), name
 
 

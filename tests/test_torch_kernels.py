@@ -637,3 +637,115 @@ def test_f32_hierarchy_on_the_card_keeps_csr_levels(cuda_device):
     finally:
         rt.set_auto_wjd(None)
     assert isinstance(h32p.levels[0].A, rt.DIA)
+
+
+# bfloat16 values: f32 products summed in f32 by both the kernel and its
+# plain version, in another order
+BF16_CASES = {
+    # launch counter: (operator on the CPU, planner kwargs, windowed regime)
+    "roll_bf16": (lambda: rt.laplacian_3d(12, dtype=np.float32,
+                                          device="cpu"),
+                  {"kernel_mode": "roll", "split_dia": False}, False),
+    "gather_bf16": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"),
+        {"split_dia": False}, False),
+    "win_roll_bf16": (lambda: rt.laplacian_3d(12, dtype=np.float32,
+                                              device="cpu"),
+                      {"kernel_mode": "roll", "split_dia": False}, True),
+    "win_gather_bf16": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"),
+        {"split_dia": False, "max_slots": 4}, True),
+}
+
+
+def _bf16_plan(key, monkeypatch):
+    make, kw, in_window = BF16_CASES[key]
+    if in_window:
+        _windowed_regime(monkeypatch)
+    W = _on_card(from_csr(make(), values_dtype="bfloat16", **kw))
+    assert W.dtype == torch.bfloat16 and W.x_dtype == torch.float32
+    assert windowed(W, torch.float32) is in_window
+    return W
+
+
+@pytest.mark.parametrize("key", sorted(BF16_CASES))
+def test_bf16_kernel_matches_plain_version(cuda_device, key, monkeypatch):
+    W = _bf16_plan(key, monkeypatch)
+    gather = W.kernel_mode == "gather"
+    if key.startswith("win_"):
+        launch = kernels.slots_kernel_windowed
+        plain = (kernels.slots_plain_compact_windowed if gather
+                 else kernels.slots_plain_windowed)
+    else:
+        launch = kernels.slots_kernel
+        plain = kernels.slots_plain_compact if gather else kernels.slots_plain
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = kernels.launches[key]
+    got = launch(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    assert got.dtype == torch.float32
+    assert _rel(got, plain(W, xp)) <= TOL[torch.float32]
+    # the entry point, with an f32 and a bfloat16 x (widened to f32)
+    for xv in (x, x.to(torch.bfloat16)):
+        y = kernels.wjd_spmv(W, xv)
+        assert y.dtype == torch.float32
+        assert _rel(y, kernels.wjd_reference(W, xv.float())) \
+            <= TOL[torch.float32]
+    assert kernels.launches[key] == before + 3
+
+
+@pytest.mark.parametrize("kc", [4, 16])
+@pytest.mark.parametrize("key", ["roll_bf16", "gather_bf16"])
+def test_bf16_spmm_kernel_matches_plain_version(cuda_device, key, kc,
+                                                monkeypatch):
+    W = _bf16_plan(key, monkeypatch)
+    plain = (kernels.slots_plain_compact_mrhs if W.kernel_mode == "gather"
+             else kernels.slots_plain_mrhs)
+    X = _x(W.shape[1] * kc, torch.float32, cuda_device).view(-1, kc)
+    xp = kernels.pad_x(W, X, kc)
+    before = kernels.launches[f"spmm_{key}"]
+    got = kernels.slots_kernel_mrhs(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"spmm_{key}"] == before + 1
+    assert _rel(got, plain(W, xp)) <= TOL[torch.float32]
+    # a column is summed in the single-RHS kernel's order, whatever kc is
+    for j in range(kc):
+        assert torch.equal(got[:, j], kernels.slots_kernel(
+            W, xp[:, j].contiguous()).reshape(-1))
+    Xb = X.to(torch.bfloat16)
+    Y = rt.spmv(W, Xb)
+    assert Y.dtype == torch.float32
+    assert _rel(Y, kernels.wjd_reference(W, Xb.float())) <= TOL[torch.float32]
+
+
+def test_bf16_plan_on_cuda_never_takes_the_plain_version(cuda_device,
+                                                         monkeypatch):
+    """A bfloat16 plan on the card launches its kernel for an f32 or a
+    bfloat16 x, through rt.spmv and a solver, and never reaches a plain
+    version; an f64 x is not served by it (plain CSR apply)."""
+    A = rt.random_banded_spd(3000, bandwidth=512, dtype=np.float32,
+                             device=cuda_device)
+    rt.attach_wjd(A, values_dtype="bfloat16")
+
+    def refuse(*args):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("slots_plain", "slots_plain_compact", "slots_plain_windowed",
+                 "slots_plain_compact_windowed", "slots_plain_mrhs",
+                 "slots_plain_compact_mrhs"):
+        monkeypatch.setattr(kernels, name, refuse)
+    before = dict(kernels.launches)
+    x = _x(A.shape[1], torch.float32, cuda_device)
+    assert rt.spmv(A, x).dtype == torch.float32
+    assert rt.spmv(A, x.to(torch.bfloat16)).dtype == torch.float32
+    # check_every=1: no masked step, so one apply an iteration and one
+    # for the first residual
+    _, info = rt.cg(A, x, M=rt.jacobi(A), rel_tol=1e-4, max_iter=200,
+                    check_every=1)
+    torch.cuda.synchronize()
+    got = kernels.launches["gather_bf16"] - before["gather_bf16"]
+    assert int(info.status) == 2 and got == 2 + int(info.iterations) + 1
+    assert rt.spmv(A, x.double()).dtype == torch.float64
+    assert kernels.launches["gather_bf16"] - before["gather_bf16"] == got
