@@ -45,6 +45,22 @@ each went through its kernels:
        plain, their launches held to their iterations. N3: MixedPrecisionDC
        on random_banded_spd(1<<20) f64 with an inner CG over a bf16 plan,
        beside the same solve over the f32 plan
+  O    the rest of the preconditioner stack and Ruge-Stüben AMG at a
+       million rows in f64, through the kernels and plain. O1: CG + RS-AMG
+       (greedy/direct on laplacian_2d(1024), pmis/extpi on
+       laplacian_2d(512)) and the device PMIS C/F split of
+       laplacian_2d(1024)'s strength graph against the CPU's. O2: CG on
+       laplacian_3d(100) with SGS, SSOR, multicoloured SGS and ILU(0, 1),
+       FSAI, SPAI, TNS, AIChebyshev, BlockJacobi, AS, RAS and BSR-IC(0).
+       O3: GMRES(30) on convection_diffusion_2d(1024) with ILU(1), ILUT and
+       BSR-ILU(0) (Jacobi-swept factors), FGMRES with ME(3) and a
+       VariablePreconditioner. Each preconditioner's apply on the card is
+       first held against the same preconditioner built and applied on the
+       CPU, on a smaller operator of the row's family; then, at full size,
+       the kernel apply of the operator and of every operand of the
+       preconditioner with a plan against its plain versions, and one
+       apply of the preconditioner against its plain path's. The two
+       paths are timed in turns over a fixed count of iterations
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -66,6 +82,7 @@ JSON.
 import contextlib
 import dataclasses
 import importlib.util
+import inspect
 import json
 import shutil
 import statistics
@@ -90,6 +107,28 @@ N2_CD_N = 1024              # phase N2: convection_diffusion_2d(1024) f64
 N2_LAP_N = 100              # and laplacian_3d(100) f64
 N2_MAX_ITER = 1000          # the samples' settings (Chebyshev: 2000)
 N2_POWER_ITERS = 200
+O_RS_N = 1024               # phase O1: laplacian_2d(1024), 1,048,576 rows
+O_RS_PMIS_N = 512           # pmis/extpi on laplacian_2d(512) (its levels
+                            # stall near 8.7k rows, a large coarse solve)
+O_LAP_N = 100               # phase O2: laplacian_3d(100) f64, 1,000,000 rows
+O_CD_N = 1024               # phase O3: convection_diffusion_2d(1024) f64
+O_CHECK_LAP_N = 24          # phase O: the card-against-CPU apply of each
+O_CHECK_CD_N = 96           # preconditioner, on laplacian_3d(24) (13,824
+                            # rows) or convection_diffusion_2d(96) (9,216)
+O_CG = dict(rel_tol=1e-8, max_iter=2000)
+CARD = "cuda"               # the device of phase O's card-side builds
+O_GMRES = dict(basis_size=30, rel_tol=1e-6, max_iter=600)
+O_VAR_MAX_ITER = 30         # the variable row: its SGS branch sweeps the
+                            # 2 x 2047 levels of its schedules, ~0.4 s
+O_RS_PMIS_MAX_ITER = 100    # pmis/extpi: CG stalls on its inexact coarse
+                            # solve (status 4 at 200 too)
+O_ERR = 1e-6                # |x-1|/|1| bound of the CG rows (phase D's)
+O_STALL_TOL = 1e-6          # a row stopping at max_iter on both paths: its
+                            # two final relative residuals, relative apart
+O_TIME_ITERS = 24           # phase O: iterations a timed solve (a multiple
+                            # of FACTOR_CHECK_EVERY and of the variable
+                            # preconditioner's 3 branches)
+O_TURNS = ("WJD", "plain", "plain", "WJD")  # phase O: timed solves in turns
 REPS = 20
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
 PROF_WALL_ITERS = 256       # phase G: CG iterations timed on the host clock
@@ -830,19 +869,23 @@ class PlanTimer:
             setattr(mod, name, fn)
 
 
+def plan_key(W):
+    """The launch counter of the entry point that serves the plan W."""
+    from rocalution_tpu_torch.formats.wjd import windowed
+
+    return (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
+            f"{TAG[W.dtype]}")
+
+
 def served_by(M):
     """How the card serves one level operator or transfer: its format, the
     entry point, and the plan's padding and spill."""
-    from rocalution_tpu_torch.formats.wjd import windowed
-
     W = getattr(M, "_wjd_cache", None)
     if W is None:
         return f"{type(M).__name__}, plain torch ops"
-    key = (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
-           f"{TAG[W.dtype]}")
     Tp, K = W.brow.shape
     text = (f"CSR nnz={M.nnz} -> WJD {W.kernel_mode} (Tp,K)=({Tp},{K}) "
-            f"wlog={W.wlog}, {KERNELS[key][0]}, padding "
+            f"wlog={W.wlog}, {KERNELS[plan_key(W)][0]}, padding "
             f"{W.padding_ratio:.2f}x")
     if W.dia_offsets:
         text += f", {len(W.dia_offsets)} diagonals split off to plain DIA"
@@ -900,35 +943,53 @@ def split_closure(rt, mg, h, A0):
     return A0s, mg.cycle_closure(hp)
 
 
+def hold_parts(rt, kernels, phase, tag, parts):
+    """The kernel apply of each (name, operand) in `parts` that carries a
+    WJD plan against the plan's plain product and the plain CSR apply of
+    the same triplet, on the same x, at TOL; raises on a disagreement, or
+    if no part has a plan. These launches are not the main path's. Returns
+    the agreements as text."""
+    lines = []
+    for name, N in parts:
+        W = getattr(N, "_wjd_cache", None)
+        if W is None:
+            continue
+        x = random_x(rt, N, W.dtype)
+        y = kernels.wjd_spmv(W, x)
+        _, rel = rel_err(y, kernels.wjd_reference(W, x),
+                         f"{phase} {tag} {name}", TOL[W.dtype])
+        plain_csr = rt.CSR.from_arrays(*N.numpy_triplet(), N.shape)
+        _, rel_c = rel_err(y, rt.spmv(plain_csr, x),
+                           f"{phase} {tag} {name} vs plain CSR", TOL[W.dtype])
+        lines.append(f"{name} {rel:.1e}/{rel_c:.1e}")
+        del plain_csr
+    if not lines:
+        raise RuntimeError(f"{phase} {tag}: no part of the row has a plan")
+    return "; ".join(lines)
+
+
 def hold_transfers(rt, kernels, h, tag):
     """Every transfer's kernel against its plain version on that operand
-    (the plan's plain product, and the plain CSR apply), at full size; the
-    finest P and R timed beside both and the library call."""
-    lines = []
-    for l, lv in enumerate(h.levels[:-1]):
-        for name, M in (("P", lv.P), ("R", lv.R)):
-            W = M._wjd_cache
-            tol = TOL[W.dtype]
-            x = random_x(rt, M, W.dtype)
-            y = kernels.wjd_spmv(W, x)
-            _, rel = rel_err(y, kernels.wjd_reference(W, x),
-                             f"K {tag} {name}{l}", tol)
-            plain_csr = rt.CSR.from_arrays(*M.numpy_triplet(), M.shape)
-            _, rel_c = rel_err(y, rt.spmv(plain_csr, x),
-                               f"K {tag} {name}{l} vs plain CSR", tol)
-            text = f"{name}{l} {rel:.1e}/{rel_c:.1e}"
-            if l == 0:
-                k_ms = median_ms(lambda: kernels.wjd_spmv(W, x))
-                p_ms = median_ms(lambda: kernels.wjd_reference(W, x))
-                lib_ms = library_ms(plain_csr, x)
-                text += (f" (apply {k_ms * 1e3:.1f} us, plain "
-                         f"{p_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} "
-                         "us)")
-            lines.append(text)
-            del plain_csr
+    (`hold_parts`), at full size; the finest P and R timed beside the
+    plan's plain product and the library call."""
+    lv = h.levels
+    held = hold_parts(rt, kernels, "K", tag, [
+        (f"{name}{l}", M) for l in range(len(lv) - 1)
+        for name, M in (("P", lv[l].P), ("R", lv[l].R))])
+    times = []
+    for name, M in (("P0", lv[0].P), ("R0", lv[0].R)):
+        W = M._wjd_cache
+        x = random_x(rt, M, W.dtype)
+        k_ms = median_ms(lambda: kernels.wjd_spmv(W, x))
+        p_ms = median_ms(lambda: kernels.wjd_reference(W, x))
+        plain_csr = rt.CSR.from_arrays(*M.numpy_triplet(), M.shape)
+        lib_ms = library_ms(plain_csr, x)
+        times.append(f"{name} apply {k_ms * 1e3:.1f} us, plain "
+                     f"{p_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us")
+        del plain_csr
     say("K", f"{tag}: each transfer's kernel vs the plan's plain product / "
-        f"the plain CSR apply, max|dy|/max|y| (tol {tol:g}): "
-        + "; ".join(lines))
+        f"the plain CSR apply, max|dy|/max|y| (tol "
+        f"{TOL[lv[0].P._wjd_cache.dtype]:g}): {held} | " + "; ".join(times))
 
 
 def amg_levels(mg, h, tag):
@@ -1187,32 +1248,13 @@ def factor_served(M, got):
 
 
 def hold_row_kernels(rt, kernels, phase, tag, Op, M):
-    """The kernel apply of a row's operator and of each factor's
-    off-diagonal part (where the plan serves them) against the plan's
-    plain product and the plain CSR apply of the same triplet, on the same
-    x, at TOL; raises on a disagreement, or if no part has a plan. These
-    launches are not the main path's."""
+    """`hold_parts` over a factorization row's operator and each factor's
+    off-diagonal part (where the factors are swept)."""
     parts = [("operator", Op)]
     if M.schedules is None:
         parts += [(f"{name} off-diagonal part", T._offd_cache)
                   for name, T in zip(("lower", "upper"), M.factors)]
-    lines = []
-    for name, N in parts:
-        W = getattr(N, "_wjd_cache", None)
-        if W is None:
-            continue
-        x = random_x(rt, N, W.dtype)
-        y = kernels.wjd_spmv(W, x)
-        _, rel = rel_err(y, kernels.wjd_reference(W, x),
-                         f"{phase} {tag} {name}", TOL[W.dtype])
-        plain_csr = rt.CSR.from_arrays(*N.numpy_triplet(), N.shape)
-        _, rel_c = rel_err(y, rt.spmv(plain_csr, x),
-                           f"{phase} {tag} {name} vs plain CSR", TOL[W.dtype])
-        lines.append(f"{name} {rel:.1e}/{rel_c:.1e}")
-        del plain_csr
-    if not lines:
-        raise RuntimeError(f"{phase} {tag}: no part of the row has a plan")
-    return "; ".join(lines)
+    return hold_parts(rt, kernels, phase, tag, parts)
 
 
 def check_row(phase, tag, A, x, b, ones, info, spec):
@@ -1692,12 +1734,7 @@ def want_launches(kernels, A, M, n_op, n_pre):
     """The launches n_op applies of A and n_pre of M make: A's plan's
     entry point once an apply, and what one apply of M launches (counted
     on a second apply: the first may finish its setup)."""
-    from rocalution_tpu_torch.formats.wjd import windowed
-
-    W = A._wjd_cache
-    key = (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
-           f"{TAG[W.dtype]}")
-    want = {key: n_op}
+    want = {plan_key(A._wjd_cache): n_op}
     if M is not None and n_pre:
         r = rhs_of_ones(A)
         M(r)
@@ -1921,6 +1958,336 @@ def phase_n3(rt, kernels, totals, A, A32, B32):
         f"{served_by(B32)}; f32 {served_by(A32)}")
 
 
+def o_check(phase, tag, make_small, build, applies):
+    """One apply (`applies` for a variable preconditioner: each branch) of
+    the preconditioner built on the card against the same preconditioner
+    built and applied on the CPU, on make_small(device), at TOL. These
+    launches are not the main path's."""
+    A_card, A_cpu = make_small(CARD), make_small("cpu")
+    M_card, M_cpu = build(A_card), build(A_cpu)
+    r = np.random.default_rng(11).standard_normal(A_cpu.shape[0])
+    r_cpu = torch.from_numpy(r)
+    worst = 0.0
+    for _ in range(applies):
+        want = M_cpu(r_cpu).to(CARD)
+        _, rel = rel_err(M_card(r_cpu.to(CARD)), want,
+                         f"{phase} {tag} card vs CPU apply",
+                         TOL[torch.float64])
+        worst = max(worst, rel)
+    return f"n={A_cpu.shape[0]} {worst:.1e}"
+
+
+def o_launches(kernels, M, n, applies):
+    """{kernel: launches} of `applies` applies of M (one cycle of a
+    variable preconditioner) to a vector of n, after one warm-up cycle."""
+    r = torch.ones(n, dtype=torch.float64, device=CARD)
+    for _ in range(applies):
+        M(r)
+    with Counted(kernels, {}) as c:
+        for _ in range(applies):
+            M(r)
+    torch.cuda.synchronize()
+    return {k: n for k, n in c.got.items() if n}
+
+
+def plan_parts(M):
+    """(path, operand) for every operand with a WJD plan that the
+    preconditioner closure M reaches: through its closure cells (named by
+    their variables), function attributes (`matrices`, `factors`,
+    `hierarchy`), lists, tuples and dicts, the port's own objects
+    (hierarchy levels, smoothers) and each factor's off-diagonal part
+    (`_offd_cache`). Each operand once."""
+    parts, seen = [], set()
+    stack = [("M", M)]
+    leaves = (torch.Tensor, np.ndarray, str, bytes, int, float, type(None),
+              type)
+    while stack:
+        path, obj = stack.pop()
+        if id(obj) in seen or isinstance(obj, leaves):
+            continue
+        seen.add(id(obj))
+        if getattr(obj, "_wjd_cache", None) is not None:
+            parts.append((path, obj))
+        if isinstance(obj, (list, tuple)):
+            kids = [(f"{path}[{i}]", v) for i, v in enumerate(obj)]
+        elif isinstance(obj, dict):
+            kids = [(f"{path}[{k!r}]", v) for k, v in obj.items()]
+        elif inspect.isfunction(obj):
+            kids = [(f"{path}.{k}", v) for k, v in vars(obj).items()]
+            kids += [(f"{path}.{name}", cell.cell_contents) for name, cell in
+                     zip(obj.__code__.co_freevars, obj.__closure__ or ())
+                     if cell.cell_contents is not None]
+        elif inspect.ismethod(obj):
+            kids = [(path, obj.__self__)]
+        elif type(obj).__module__.startswith("rocalution_tpu_torch."):
+            kids = [(f"{path}.{k}", v)
+                    for k, v in getattr(obj, "__dict__", {}).items()]
+        else:
+            kids = []
+        stack.extend(reversed(kids))
+    return parts
+
+
+def o_solve(phase, tag, A, b, x, info, cg):
+    """One path's solve of a phase O row: its true relative residual under
+    RES_BOUND, and |x-1|/|1| under O_ERR where a CG row converged. Returns
+    (iterations, status, |x-1|/|1|, |b-Ax|/|b|, reported residual)."""
+    it, st = int(info.iterations), int(info.status)
+    err = error_of(A, x, b, True)[1]
+    res = true_residual(A, x, b)
+    reported = float(info.final_res) / float(info.init_res)
+    bound = max(RES_BOUND[0] * reported, RES_BOUND[1][torch.float64])
+    if not res <= bound or (cg and st == 2 and not err < O_ERR):
+        raise RuntimeError(f"{phase} {tag}: status {st}, |x-1|/|1| "
+                           f"{err:.3e}, |b-Ax|/|b| {res:.3e} (bound "
+                           f"{bound:.1e})")
+    return it, st, err, res, reported
+
+
+def o_row(rt, kernels, totals, phase, tag, A, b, build, small, *, solver,
+          kw, plain=None, applies=1):
+    """One row of phase O on the operator A (on the card) and b = A 1,
+    with the preconditioner M = build(A) (timed: the row's setup):
+    1. build's apply on the card against the same built and applied on
+       the CPU, on small(device) (`o_check`);
+    2. the kernel apply of A and of every operand of M with a plan
+       (`plan_parts`) against the plan's plain product and the plain CSR
+       apply (`hold_parts`);
+    3. the plain path: a fresh plan-free copy A_p of A and M_p = plain(A_p,
+       M), both made with auto_wjd off; where plain is None, M_p is M (its
+       apply holds no SpMV). Where M_p is not M, one apply of each (a
+       cycle of `applies` for a variable preconditioner) at full size is
+       held to the other at TOL;
+    4. the solve through the kernels (counted), then plain (no launch):
+       each held by `o_solve`, both at one status, the iterations within
+       1 (CG) or 2 of each other; where both stop at max_iter, their final
+       relative residuals within O_STALL_TOL of each other;
+    5. the launches at least what the iterations apply (`o_launches`);
+    6. ms/iter over O_TIME_ITERS iterations a solve, the paths in turns
+       (O_TURNS), the solves of 4 being their warm-up.
+    Returns M."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    t_row = time.perf_counter()
+    f64_tol = TOL[torch.float64]
+    checked = o_check(phase, tag, small, build, applies)
+    as_operator(A)                                  # its plan, now
+    M, setup_s = timed(lambda: build(A))
+    parts = [("A", A)] + [p for p in plan_parts(M) if p[1] is not A]
+    held = hold_parts(rt, kernels, phase, tag, parts)
+    solver_kw = dict(kw, check_every=FACTOR_CHECK_EVERY)
+    plain_got = {}
+    with Plain(rt), Counted(kernels, plain_got):
+        A_p = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+        M_p = M if plain is None else plain(A_p, M)
+    same = "the plain path applies M itself"
+    if M_p is not M:
+        r = torch.from_numpy(np.random.default_rng(12).standard_normal(
+            A.shape[0])).to(CARD)
+        z = [M(r) for _ in range(applies)]
+        with Plain(rt), Counted(kernels, plain_got):
+            z_p = [M_p(r) for _ in range(applies)]
+        worst = max(rel_err(z_, zp_, f"{phase} {tag} M vs plain M at full "
+                            "size", f64_tol)[1] for z_, zp_ in zip(z, z_p))
+        same = f"M vs plain M, max|dz|/max|z| {worst:.1e}"
+    with Counted(kernels, totals) as c:
+        (x, info), wjd_s = timed(lambda: solver(A, b, M=M, **solver_kw))
+    with Plain(rt), Counted(kernels, plain_got):
+        (x_p, info_p), plain_s = timed(lambda: solver(A_p, b, M=M_p,
+                                                      **solver_kw))
+    if any(plain_got.values()):
+        raise RuntimeError(f"{phase} {tag} plain: launched {plain_got}")
+    cg = solver is rt.cg
+    it, st, err, res, rep = o_solve(phase, f"{tag} WJD", A, b, x, info, cg)
+    it_p, st_p, err_p, res_p, rep_p = o_solve(phase, f"{tag} plain", A, b,
+                                              x_p, info_p, cg)
+    if st != st_p or abs(it - it_p) > (1 if cg else 2):
+        raise RuntimeError(f"{phase} {tag}: WJD {it} iterations status {st}"
+                           f", plain {it_p} status {st_p}")
+    stall = ""
+    if it == it_p == kw["max_iter"]:
+        d = abs(rep - rep_p) / rep_p
+        if not d <= O_STALL_TOL:
+            raise RuntimeError(f"{phase} {tag}: both stop at max_iter with "
+                               f"final residuals {rep:.12e} and "
+                               f"{rep_p:.12e}")
+        stall = (f" | both at max_iter: final residuals {rep:.6e} / "
+                 f"{rep_p:.6e}, apart {d:.1e} (tol {O_STALL_TOL:g})")
+    per = o_launches(kernels, M, A.shape[0], applies)
+    want = {plan_key(A._wjd_cache): it}
+    for k, n in per.items():
+        want[k] = want.get(k, 0) + n * (it // applies)
+    short = {k: (c.got.get(k, 0), n) for k, n in want.items()
+             if c.got.get(k, 0) < n}
+    if short:
+        raise RuntimeError(f"{phase} {tag}: launches (got, want) {short}")
+    paths = {"WJD": (A, M, contextlib.nullcontext()),
+             "plain": (A_p, M_p, Plain(rt))}
+    time_kw = dict(solver_kw, rel_tol=1e-30, max_iter=O_TIME_ITERS)
+    ms = []
+    for path in O_TURNS:
+        A_, M_, ctx = paths[path]
+        with ctx:
+            (_, inf_), s = timed(lambda: solver(A_, b, M=M_, **time_kw))
+        ms.append(f"{path} {s / max(int(inf_.iterations), 1) * 1e3:.3f}")
+    levels = [sch.nlev for sch in getattr(M, "schedules", None) or ()]
+    say(phase, f"{tag}: setup {setup_s:.2f} s"
+        + (f" (level schedules of {levels} levels)" if levels else "")
+        + f" | card vs CPU apply max|dz|/max|z| {checked} | {same} | WJD: "
+        f"status {st}, {it} iters, |x-1|/|1| {err:.3e}, |b-Ax|/|b| "
+        f"{res:.3e}, first solve {wjd_s:.2f} s | plain: status {st_p}, "
+        f"{it_p} iters, {err_p:.3e}, {res_p:.3e}, first solve "
+        f"{plain_s:.2f} s{stall} | ms/iter over {O_TIME_ITERS} iterations "
+        "in turns " + ", ".join(ms) + " | launches "
+        f"{ {k: n for k, n in c.got.items() if n} } (one apply of M: "
+        f"{per if applies == 1 else f'{per} over {applies}'}) | row "
+        f"{time.perf_counter() - t_row:.1f} s")
+    say(phase, f"{tag}: each kernel apply vs the plan's plain product / "
+        f"the plain CSR apply, max|dy|/max|y| (tol {f64_tol:g}): {held}")
+    return M
+
+
+def phase_o1(rt, kernels, totals):
+    """CG + RS-AMG as cg_rsamg.py (coarse_size 200, rel_tol 1e-8,
+    max_iter 200): greedy coarsening with direct interpolation at a
+    million rows, PMIS with ExtPI at a quarter million (max_iter
+    O_RS_PMIS_MAX_ITER); then the device PMIS C/F split of the million-row
+    strength graph on the card against the CPU."""
+    from rocalution_tpu_torch.solvers import multigrid as mg
+    from rocalution_tpu_torch.solvers.multigrid import aggregation_device
+    from rocalution_tpu_torch.solvers.multigrid import rs
+
+    def plain(A_p, M):
+        return mg.cycle_closure(plain_hierarchy(rt, mg, M.hierarchy, A_p))
+
+    for n, coarsening, interp, max_iter in (
+            (O_RS_N, "greedy", "direct", 200),
+            (O_RS_PMIS_N, "pmis", "extpi", O_RS_PMIS_MAX_ITER)):
+        kw = dict(coarse_size=200, coarsening=coarsening,
+                  interpolation=interp)
+        tag = f"CG + RS-AMG({coarsening}/{interp}) laplacian_2d({n})"
+        A = rt.laplacian_2d(n)
+        M = o_row(rt, kernels, totals, "O1", tag, A, rhs_of_ones(A),
+                  lambda Aop, kw=kw: mg.cycle_closure(mg.rsamg(Aop, **kw)),
+                  lambda d: rt.laplacian_2d(64, device=d), solver=rt.cg,
+                  kw=dict(rel_tol=1e-8, max_iter=max_iter), plain=plain)
+        h = M.hierarchy
+        say("O1", f"{tag}: levels {h.operator_sizes()}; " + "; ".join(
+            f"{name}{l} {served_by(T)}" for l, lv in enumerate(h.levels)
+            for name, T in (("A", lv.A), ("P", lv.P)) if T is not None))
+        del A, h, M
+        torch.cuda.empty_cache()
+    A = rt.laplacian_2d(O_RS_N, device="cpu")
+    Sg = rs.classical_strength(rs._scipy(A))
+    cf_card, card_s = timed(
+        lambda: aggregation_device.pmis_coarsening_device(Sg, 1, CARD))
+    t0 = time.perf_counter()
+    cf_cpu = aggregation_device.pmis_coarsening_device(Sg, 1, "cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(cf_card, cf_cpu):
+        diff = int((cf_card != cf_cpu).sum())
+        raise RuntimeError("O1: the device PMIS C/F map on the card differs "
+                           f"from the CPU's in {diff} points")
+    say("O1", f"pmis-device C/F split of laplacian_2d({O_RS_N})'s strength "
+        f"graph ({Sg.nnz} edges): {int(cf_card.sum())} C points, equal to "
+        f"the CPU's element for element; card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s")
+
+
+def phase_o(rt, kernels, totals):
+    """Phase O: O1 (RS-AMG), O2 (CG on laplacian_3d(100) with the
+    preconditioners of the rest of the stack), O3 (GMRES(30) and FGMRES on
+    convection_diffusion_2d(1024))."""
+    from rocalution_tpu_torch import precond as P
+
+    t0 = time.perf_counter()
+    phase_o1(rt, kernels, totals)
+    say("O1", f"phase O1: {time.perf_counter() - t0:.0f} s")
+
+    def lap_small(d):
+        return rt.laplacian_3d(O_CHECK_LAP_N, device=d)
+
+    def cd_small(d):
+        return rt.convection_diffusion_2d(O_CHECK_CD_N, device=d)
+
+    def bsr(A):
+        return rt.convert(A, "BCSR", block_dim=2)
+
+    def rebuilt(build):
+        """The plain path's M: the same build on the plain operator."""
+        return lambda A_p, M: build(A_p)
+
+    # name -> (build(A), whether the plain path applies the same M: its
+    # apply holds no SpMV)
+    o2 = {
+        "SGS": (P.sgs, True),
+        "SSOR(1.5)": (lambda A: P.ssor(A, 1.5), True),
+        "multicoloured SGS": (P.multicolored_sgs, True),
+        "multicoloured ILU(0, 1)": (lambda A: P.multicolored_ilu(A, 0, 1),
+                                    True),
+        "FSAI(1)": (P.fsai, False),
+        "SPAI": (P.spai, False),
+        "TNS(2)": (lambda A: P.tns(A, 2), False),
+        "AIChebyshev(4)": (lambda A: P.aichebyshev(A, 4), False),
+        "BlockJacobi(n/64)": (lambda A: P.block_jacobi(A, A.shape[0] // 64),
+                              True),
+        "AS(n/64, 8)": (lambda A: P.additive_schwarz(A, A.shape[0] // 64, 8),
+                        True),
+        "RAS(n/64, 8)": (lambda A: P.restricted_additive_schwarz(
+            A, A.shape[0] // 64, 8), True),
+        # 8 Jacobi sweeps: the flattened factor's level schedules (496
+        # levels each) took 82-137 ms an iteration
+        "BSR-IC(0) block_dim 2, 8 sweeps": (
+            lambda A: P.bsr_ic0(bsr(A), method="jacobi", sweeps=8), False),
+    }
+    t0 = time.perf_counter()
+    A = rt.laplacian_3d(O_LAP_N)
+    b = rhs_of_ones(A)
+    for name, (build, shared) in o2.items():
+        o_row(rt, kernels, totals, "O2", f"CG + {name} laplacian_3d("
+              f"{O_LAP_N}) f64", A, b, build, lap_small, solver=rt.cg,
+              kw=O_CG, plain=None if shared else rebuilt(build))
+        torch.cuda.empty_cache()
+    del A, b
+    say("O2", f"phase O2: {time.perf_counter() - t0:.0f} s")
+
+    def swept(make):
+        return lambda A: make(A, method="jacobi", sweeps=8)
+
+    # name -> (solver, build(A), applies a cycle of M)
+    o3 = {
+        "GMRES(30) + ILU(1)": (rt.gmres, swept(lambda A, **k: P.ilu(A, 1,
+                                                                     **k)),
+                               1),
+        "GMRES(30) + ILUT(1e-3, 32)": (rt.gmres, swept(
+            lambda A, **k: P.ilut_precond(A, 1e-3, 32, **k)), 1),
+        "GMRES(30) + BSR-ILU(0) block_dim 2": (rt.gmres, swept(
+            lambda A, **k: P.bsr_ilu0(bsr(A), **k)), 1),
+        # the last Schur block (~10^5 rows) by ILU(0) with Jacobi sweeps:
+        # its level schedule costs ~0.5 s an apply
+        "FGMRES(30) + ME(3, 1e-3, last ILU(0) 8 sweeps)": (
+            rt.fgmres, lambda A: P.multi_elimination(
+                A, 3, 1e-3, last_solver=swept(lambda M, **k: P.ilu(M, 0,
+                                                                    **k))),
+            1),
+        f"FGMRES(30) + Variable[Jacobi, SGS, TNS], max_iter "
+        f"{O_VAR_MAX_ITER}": (
+            rt.fgmres, lambda A: P.variable_precond(
+                [P.jacobi(A), P.sgs(A), P.tns(A)]), 3),
+    }
+    t0 = time.perf_counter()
+    A = rt.convection_diffusion_2d(O_CD_N)
+    b = rhs_of_ones(A)
+    for name, (solver, build, applies) in o3.items():
+        kw = (dict(O_GMRES, max_iter=O_VAR_MAX_ITER) if applies > 1
+              else O_GMRES)
+        o_row(rt, kernels, totals, "O3", f"{name} convection_diffusion_2d("
+              f"{O_CD_N}) f64", A, b, build, cd_small, solver=solver, kw=kw,
+              plain=rebuilt(build), applies=applies)
+        torch.cuda.empty_cache()
+    say("O3", f"phase O3: {time.perf_counter() - t0:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
@@ -2023,6 +2390,8 @@ def main():
     lap("N3")
     phase_n2(rt, kernels, totals)
     lap("N2")
+    phase_o(rt, kernels, totals)
+    lap("O")
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

@@ -8,17 +8,23 @@ ops/cuda/), BLAS-1, SpGEMM and the Galerkin product (ops/spgemm.py),
 IterationControl, the Krylov solvers (CG, CR, FCG, BiCGStab, BiCGStab(l),
 IDR(s), QMRCGStab, GMRES, FGMRES), Chebyshev with Gershgorin bounds and
 the power method, FixedPoint, MixedPrecisionDC, the
-dense direct solvers (QR, LU, inversion), the Jacobi, ILU(0), IC(0) and
-ItILU0 preconditioners (factorized on the host through the native layer,
-applied by level-scheduled or Jacobi-swept tri-solves, ops/trisolve.py),
-RCM/CMK orderings, and multigrid: SA, UA and pairwise AMG hierarchies
-with V, W, F and K cycles (solvers/multigrid), set up on the host through
-the native layer (native/) and cycled on the device of the fine operator. It imports torch, numpy and scipy and never jax.
+dense direct solvers (QR, LU, inversion), the whole preconditioner stack
+of the JAX package (precond/: Jacobi, GS/SGS/SOR/SSOR, multicoloured
+GS/SGS/ILU, ILU(p), IC(0), ILUT, ItILU0, BSR-ILU(0)/IC(0), FSAI, SPAI,
+TNS, AIChebyshev, BlockJacobi, BlockPreconditioner, AS/RAS,
+MultiElimination, VariablePreconditioner, saddle point; set up on the
+host, factorizations through the native layer, applied by level-scheduled
+or Jacobi-swept tri-solves, ops/trisolve.py, and SpMV chains), the
+orderings and extraction ops (ops/ordering.py, ops/extract.py), and
+multigrid: SA, UA, pairwise and Ruge-Stüben AMG hierarchies with V, W, F
+and K cycles (solvers/multigrid), set up on the host through the native
+layer (native/), PMIS optionally on the device, and cycled on the device
+of the fine operator. It imports torch, numpy and scipy and never jax.
 Constructors build on the card ("cuda") unless the caller passes
 ``device="cpu"`` or calls ``set_default_device("cpu")``.
 """
 
-from . import backend, config
+from . import backend, config, precond
 from .backend import info, init, stop, sync
 from .config import set_auto_wjd, set_default_device, set_default_dtype
 from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
@@ -47,7 +53,7 @@ __all__ = [
     "convection_diffusion_2d", "fem_2d_unstructured", "random_banded_spd",
     "info", "init", "stop", "sync",
     "set_default_device", "set_default_dtype", "set_auto_wjd", "backend",
-    "config",
+    "config", "precond",
 ]
 
 __version__ = "0.1.0"

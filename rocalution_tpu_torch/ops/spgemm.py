@@ -29,8 +29,13 @@ def _scipy(A: CSR):
 
 
 def from_scipy(S, device=None) -> CSR:
-    C = S.tocoo()
-    return CSR.from_coo(C.row, C.col, C.data, C.shape, device=device)
+    """The CSR of a scipy matrix: its arrays as they are, once in
+    canonical form (sorted, no duplicates), which is what the JAX
+    package's COO round trip gives, without the sort of all entries."""
+    S = S.tocsr()
+    S.sum_duplicates()
+    return CSR.from_arrays(S.data, S.indices, S.indptr, S.shape,
+                           device=device)
 
 
 def spmm_host(Sa, Sb):

@@ -1,10 +1,8 @@
-"""Multigrid solvers: geometric MG + the aggregation AMG family.
+"""Multigrid solvers: geometric MG + the AMG family.
 
 Counterpart of rocalution_tpu/solvers/multigrid/__init__.py (reference:
 BaseMultiGrid/MultiGrid, BaseAMG hierarchy autobuild until coarse_size,
-base_amg.cpp:192-325, SAAMG, UAAMG, PairwiseAMG). Ruge-Stüben AMG
-(rs.py) and device PMIS aggregation (aggregation_device.py) are not
-ported yet (ROADMAP.md section 1 item 8).
+base_amg.cpp:192-325, RugeStuebenAMG, SAAMG, UAAMG, PairwiseAMG).
 
     h = amg_hierarchy(A, "sa", coarse_size=300)
     x, info = rt.cg(A, b, M=cycle_closure(h))
@@ -19,10 +17,12 @@ from .base import (Hierarchy, MGLevel, build_hierarchy, convert_hierarchy,
                    cycle_closure, jacobi_smoother, make_galerkin_plans,
                    mg_solve, place_hierarchy, precond_smoother,
                    rebuild_hierarchy_numeric)
+from .rs import rs_level
 
 _LEVEL_BUILDERS = {
     "sa": sa_level,
     "ua": ua_level,
+    "rs": rs_level,
     "pairwise": pairwise_level,
 }
 
@@ -43,15 +43,12 @@ def amg_hierarchy(
     """Autobuild an AMG hierarchy (reference: BaseAMG::BuildHierarchy loop
     until op->GetM() <= coarse_size, base_amg.cpp:192-325).
 
-    kind: "sa" | "ua" | "pairwise"; level_kwargs pass through to the
-    per-kind coarsening (eps/omega/strategy for sa, beta/npass for
-    pairwise, over_interp for ua). The levels below A are host-resident
-    until a cycle closure places them on A's device.
+    kind: "sa" | "ua" | "rs" | "pairwise"; level_kwargs pass through to
+    the per-kind coarsening (eps/omega/strategy for sa, theta/coarsening/
+    interpolation for rs, beta/npass for pairwise, over_interp for ua).
+    The levels below A are host-resident until a cycle closure places
+    them on A's device.
     """
-    if kind == "rs":
-        raise NotImplementedError(
-            "Ruge-Stüben AMG (rs_level, solvers/multigrid/rs.py) is not "
-            "ported yet: ROADMAP.md section 1 item 8")
     level_fn = _LEVEL_BUILDERS[kind]
     ops = [A]
     prolongs, restricts = [], []
@@ -94,6 +91,11 @@ def uaamg(A, **kwargs) -> Hierarchy:
     return amg_hierarchy(A, "ua", **kwargs)
 
 
+def rsamg(A, **kwargs) -> Hierarchy:
+    """Ruge-Stüben AMG hierarchy (reference: RugeStuebenAMG)."""
+    return amg_hierarchy(A, "rs", **kwargs)
+
+
 def pairwise_amg(A, **kwargs) -> Hierarchy:
     """Pairwise-aggregation AMG hierarchy (reference: PairwiseAMG)."""
     return amg_hierarchy(A, "pairwise", **kwargs)
@@ -112,6 +114,6 @@ __all__ = [
     "build_hierarchy", "convert_hierarchy", "cycle_closure",
     "jacobi_smoother", "make_galerkin_plans", "mg_solve",
     "pairwise_amg", "pairwise_level", "place_hierarchy",
-    "precond_smoother", "rebuild_hierarchy_numeric", "sa_level", "saamg",
-    "ua_level", "uaamg",
+    "precond_smoother", "rebuild_hierarchy_numeric", "rs_level", "rsamg",
+    "sa_level", "saamg", "ua_level", "uaamg",
 ]

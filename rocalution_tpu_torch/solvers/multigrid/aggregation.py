@@ -199,7 +199,7 @@ def _gather_rows(C, rows) -> np.ndarray:
     return C.indices[src]
 
 
-def _aggregate(C, strategy: str, seed: int) -> np.ndarray:
+def _aggregate(C, strategy: str, seed: int, device=None) -> np.ndarray:
     """Pick the aggregation pass: sequential greedy (Vanek parity — the
     reference default) when the native C++ sweep is available, else greedy
     for small setups and vectorized PMIS at scale (the reference similarly
@@ -213,9 +213,11 @@ def _aggregate(C, strategy: str, seed: int) -> np.ndarray:
     if strategy == "greedy":
         return greedy_aggregate(C)
     if strategy == "pmis-device":
-        raise NotImplementedError(
-            "device PMIS aggregation (aggregation_device.py) is not ported "
-            "yet: ROADMAP.md section 1 item 8")
+        # the whole Luby / knock-out / join loop on the operator's device
+        # (the hip_rsamg-analog setup path): aggregation_device.py
+        from .aggregation_device import pmis_aggregate_jit
+
+        return pmis_aggregate_jit(C, seed, device)
     return pmis_aggregate(C, seed)
 
 
@@ -263,7 +265,7 @@ def sa_level(A: CSR, *, eps: float = 0.08, omega: float = 2.0 / 3.0,
     C = sp.csr_matrix(
         (np.ones(int(strong.sum()), np.int8),
          (rows[strong], indices[strong])), shape=S.shape)
-    agg = _aggregate(C, strategy, seed)
+    agg = _aggregate(C, strategy, seed, A.device)
     n_agg = int(agg.max()) + 1
     Ph = tentative_prolongation(agg, n_agg, S.dtype)
 
@@ -325,7 +327,7 @@ def _sa_level_native(A, eps, omega, strategy, lumping, seed):
 
         C = sp.csr_matrix(
             (np.ones(len(scol), np.int8), scol, sptr), shape=A.shape)
-        agg = _aggregate(C, strategy, seed)
+        agg = _aggregate(C, strategy, seed, A.device)
     n_agg = int(agg.max()) + 1
     P, R, Ac = native.sa_galerkin(ptr, ind, data, agg, n_agg, eps, omega,
                                   lumping)
@@ -373,7 +375,7 @@ def ua_level(A: CSR, *, eps: float = 0.08, over_interp: float = 1.0,
     SetOverInterp — coarse operator scaled by 1/over_interp)."""
     S = _scipy(A)
     C = strength_connect(S, eps)
-    agg = _aggregate(C, strategy, seed)
+    agg = _aggregate(C, strategy, seed, A.device)
     n_agg = int(agg.max()) + 1
     from ...ops.spgemm import spmm_host
 

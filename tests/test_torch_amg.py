@@ -30,6 +30,7 @@ from rocalution_tpu_torch import native
 from rocalution_tpu_torch.ops import spgemm
 from rocalution_tpu_torch.solvers import multigrid as tmg
 from rocalution_tpu_torch.solvers.multigrid import aggregation as torch_agg
+from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -216,8 +217,13 @@ def test_hierarchy_level_sizes_match_jax(built, name, kind, kw):
 
 
 def test_rs_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmg.amg_hierarchy(rt.laplacian_2d(8), "rs")
+    """Ruge-Stüben AMG was the kind this slice left out; it is ported now
+    (tests/test_torch_rsamg.py holds it to the JAX package), and
+    amg_hierarchy builds the JAX package's levels for kind="rs"."""
+    hj = jmg.amg_hierarchy(jrt.laplacian_2d(8), "rs", coarse_size=10)
+    ht = tmg.amg_hierarchy(rt.laplacian_2d(8), "rs", coarse_size=10)
+    assert ht.operator_sizes() == hj.operator_sizes()
+    assert ht.num_levels >= 2
 
 
 # ----------------------------------------------------------------- SpGEMM

@@ -29,6 +29,7 @@ from rocalution_tpu.precond import ic as jax_ic
 from rocalution_tpu.precond import ilu as jax_ilu
 from rocalution_tpu.precond import itilu0 as jax_itilu0
 from rocalution_tpu_torch.ops import factorize, ordering, trisolve
+from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -362,5 +363,7 @@ def test_unknown_method_and_fill_level_raise():
     A = rt.laplacian_2d(4)
     with pytest.raises(ValueError):
         rt.ilu(A, 0, method="gauss")
-    with pytest.raises(NotImplementedError):
-        rt.ilu(A, 1)
+    # ILU(p > 0) is ported (tests/test_torch_precond.py): a fill level
+    # takes the same method check
+    with pytest.raises(ValueError):
+        rt.ilu(A, 1, method="gauss")

@@ -21,15 +21,19 @@ from rocalution_tpu_torch.formats import (bcsr, convert, coo, dense, ell, hyb,
                                           mcsr)
 from rocalution_tpu_torch.ops.cuda import _build, spmv_wjd
 from rocalution_tpu_torch import native
-from rocalution_tpu_torch.ops import factorize, ordering, spgemm, trisolve
-from rocalution_tpu_torch.precond import ilu, jacobi
+from rocalution_tpu_torch.ops import (extract, factorize, ordering, spgemm,
+                                      trisolve)
+from rocalution_tpu_torch.precond import (ai, block, gs, ilu, jacobi, me,
+                                          multicolored)
 from rocalution_tpu_torch.solvers import mixed_precision
 from rocalution_tpu_torch.solvers.krylov import (bicgstab, bicgstabl, cr,
                                                  fcg, gmres, idr, qmrcgstab)
 from rocalution_tpu_torch.solvers import chebyshev
 from rocalution_tpu_torch.ops import spectral
 from rocalution_tpu_torch.solvers import direct, fixed_point, multigrid
-from rocalution_tpu_torch.solvers.multigrid import aggregation, base
+from rocalution_tpu_torch.solvers.multigrid import (aggregation,
+                                                    aggregation_device, base,
+                                                    rs)
 from rocalution_tpu_torch.utils import log
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 print(bad)
@@ -92,6 +96,39 @@ def test_slice_surface():
                        (trisolve, ("LevelSchedule", "build_schedule",
                                    "solve_schedule", "prepare_offd",
                                    "trisolve_jacobi"))):
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
+
+
+def test_preconditioner_and_rs_surface():
+    """The JAX package's preconditioner exports (precond/__init__.py), the
+    extraction and ordering ops, and Ruge-Stüben AMG."""
+    from rocalution_tpu_torch.ops import extract, factorize, ordering
+    from rocalution_tpu_torch.solvers import multigrid
+
+    for mod, names in (
+            (rt.precond, ("additive_schwarz", "aichebyshev", "backward_gs",
+                          "block_jacobi", "block_precond", "bsr_ic0",
+                          "bsr_ilu0", "fsai", "gs", "ic", "ilu",
+                          "ilut_precond", "itilu0", "jacobi",
+                          "multi_elimination", "multicolored_gs",
+                          "multicolored_ilu", "multicolored_sgs",
+                          "restricted_additive_schwarz",
+                          "saddle_point_precond", "sgs", "sor", "spai",
+                          "ssor", "tns", "variable_precond")),
+            (extract, ("extract_lower", "extract_upper", "extract_submatrix",
+                       "extract_index_submatrix", "extract_submatrices",
+                       "scale", "scale_diagonal", "scale_off_diagonal",
+                       "add_scalar", "add_scalar_diagonal",
+                       "add_scalar_off_diagonal", "compress",
+                       "extract_row_vector", "extract_column_vector",
+                       "replace_row_vector", "replace_column_vector",
+                       "create_from_map")),
+            (ordering, ("multicoloring", "maximal_independent_set",
+                        "connectivity_order", "zero_block_permutation",
+                        "permute_rows_csr")),
+            (factorize, ("ilup", "ilut", "bsrilu0", "bsric0")),
+            (multigrid, ("rsamg", "rs_level"))):
         for name in names:
             assert hasattr(mod, name), (mod.__name__, name)
 

@@ -749,3 +749,109 @@ def test_bf16_plan_on_cuda_never_takes_the_plain_version(cuda_device,
     assert int(info.status) == 2 and got == 2 + int(info.iterations) + 1
     assert rt.spmv(A, x.double()).dtype == torch.float64
     assert kernels.launches["gather_bf16"] - before["gather_bf16"] == got
+
+
+# the preconditioners of the rest of the stack: name -> (operator, build)
+PRECONDS = {
+    "sgs": ("lap", lambda P, A: P.sgs(A)),
+    "ssor": ("lap", lambda P, A: P.ssor(A, 1.5)),
+    "mc_sgs": ("lap", lambda P, A: P.multicolored_sgs(A)),
+    "mc_ilu": ("lap", lambda P, A: P.multicolored_ilu(A, 0, 1)),
+    "fsai": ("lap", lambda P, A: P.fsai(A)),
+    "spai": ("lap", lambda P, A: P.spai(A)),
+    "tns": ("lap", lambda P, A: P.tns(A, 2)),
+    "aichebyshev": ("lap", lambda P, A: P.aichebyshev(A, 4)),
+    "block_jacobi": ("lap", lambda P, A: P.block_jacobi(A, A.shape[0] // 64)),
+    "as": ("lap", lambda P, A: P.additive_schwarz(A, A.shape[0] // 64, 8)),
+    "ras": ("lap", lambda P, A: P.restricted_additive_schwarz(
+        A, A.shape[0] // 64, 8)),
+    "bsr_ic0": ("lap", lambda P, A: P.bsr_ic0(rt.convert(A, "BCSR",
+                                                         block_dim=2))),
+    "ilu1": ("cd", lambda P, A: P.ilu(A, 1)),
+    "ilut": ("cd", lambda P, A: P.ilut_precond(A, 1e-3, 32)),
+    "bsr_ilu0": ("cd", lambda P, A: P.bsr_ilu0(rt.convert(A, "BCSR",
+                                                          block_dim=2))),
+    "me": ("cd", lambda P, A: P.multi_elimination(A, 3, 1e-3,
+                                                  last_solver=P.ilu)),
+    "variable": ("cd", lambda P, A: P.variable_precond(
+        [P.jacobi(A), P.sgs(A), P.tns(A)])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRECONDS))
+def test_preconditioner_apply_on_the_card_matches_the_cpu(cuda_device,
+                                                          name):
+    """One apply of each preconditioner on the card against the same
+    preconditioner built and applied on the CPU, at 1e-12 relative in f64
+    (variable: each branch once)."""
+    from rocalution_tpu_torch import precond
+
+    op, build = PRECONDS[name]
+    make = {"lap": lambda d: rt.laplacian_3d(16, device=d),
+            "cd": lambda d: rt.convection_diffusion_2d(48, device=d)}[op]
+    M_card, M_cpu = build(precond, make(cuda_device)), build(precond,
+                                                             make("cpu"))
+    r = _x(make("cpu").shape[0], torch.float64, "cpu", seed=3)
+    for _ in range(3 if name == "variable" else 1):
+        assert _rel(M_card(r.to(cuda_device)).cpu(), M_cpu(r)) <= 1e-12
+
+
+def test_fsai_apply_launches_the_kernels(cuda_device):
+    """FSAI's two factors carry plans: an apply is two kernel launches."""
+    from rocalution_tpu_torch import precond
+
+    M = precond.fsai(rt.laplacian_3d(16, device=cuda_device))
+    keys = {f"{G._wjd_cache.kernel_mode}_f64" for G in M.matrices}
+    r = _x(16 ** 3, torch.float64, cuda_device)
+    M(r)
+    before = dict(kernels.launches)
+    M(r)
+    torch.cuda.synchronize()
+    assert sum(kernels.launches[k] - before[k] for k in keys) == 2
+
+
+def test_rsamg_cycle_launches_the_kernels(cuda_device):
+    """CG + RS-AMG (greedy, direct) on the card: every transfer and level
+    operator carries a plan, a V-cycle launches a kernel for each of
+    them, and the solve takes the iterations of the same solve on the CPU
+    (within 1)."""
+    from rocalution_tpu_torch.solvers.multigrid import (cycle_closure,
+                                                        rsamg)
+
+    def solve(device):
+        A = rt.laplacian_2d(96, device=device)
+        M = cycle_closure(rsamg(A, coarse_size=200, coarsening="greedy",
+                                interpolation="direct"))
+        d, _, p = A.numpy_triplet()
+        b = torch.from_numpy(np.add.reduceat(d, p[:-1])).to(device)
+        x, info = rt.cg(M.hierarchy.levels[0].A, b, M=M, rel_tol=1e-8,
+                        max_iter=100, check_every=4)
+        return M, b, x, info
+
+    M, b, x, info = solve(cuda_device)
+    h = M.hierarchy
+    assert h.num_levels >= 3
+    plans = [T for lv in h.levels for T in (lv.A, lv.P, lv.R)
+             if isinstance(T, rt.CSR)]
+    assert all(T._wjd_cache is not None for T in plans)
+    before = sum(kernels.launches.values())
+    M(b)
+    torch.cuda.synchronize()
+    assert sum(kernels.launches.values()) - before >= len(plans)
+    assert int(info.status) == 2
+    assert float((x - 1).abs().max()) < 1e-6
+    _, _, _, info_cpu = solve("cpu")
+    assert abs(int(info.iterations) - int(info_cpu.iterations)) <= 1
+
+
+def test_device_pmis_on_the_card_matches_the_cpu(cuda_device):
+    from rocalution_tpu_torch.solvers.multigrid import aggregation_device
+    from rocalution_tpu_torch.solvers.multigrid import rs
+
+    Sg = rs.classical_strength(rs._scipy(rt.laplacian_2d(64, device="cpu")))
+    np.testing.assert_array_equal(
+        aggregation_device.pmis_coarsening_device(Sg, 1, cuda_device),
+        aggregation_device.pmis_coarsening_device(Sg, 1, "cpu"))
+    np.testing.assert_array_equal(
+        aggregation_device.pmis_aggregate_jit(Sg, 1, cuda_device),
+        aggregation_device.pmis_aggregate_jit(Sg, 1, "cpu"))
