@@ -61,6 +61,20 @@ each went through its kernels:
        preconditioner with a plan against its plain versions, and one
        apply of the preconditioner against its plain path's. The two
        paths are timed in turns over a fixed count of iterations
+  P    IO, the plan cache, complex operators and stencils. P1:
+       laplacian_3d(100) and random_banded_spd(1<<20) f64
+       written with write_csr and write_rocsparseio (the first with
+       write_mtx too), read back onto the card bit for bit and solved with
+       CG + Jacobi at phase D's and E's counts; the repo's fixtures (the
+       golden rocsparseio file, CG + IC(0) and GMRES(30) + ILU(0) on the
+       two MatrixMarket files to 1e-8). P2: laplacian_3d(128) planned cold
+       and warm through a fresh plan cache, the warm plan through its
+       kernels. P3: both operators plus 0.05j*T (T symmetric on the
+       pattern) in complex128 and complex64 as ComplexWJDs: the product
+       against its plain versions, the two layouts of a complex product
+       timed, complex CG, GMRES(30) and BiCGStab through the kernels and
+       plain. P4: CG on laplace3d_stencil(100), matrix-free, beside the
+       same CG on the assembled operator
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -84,10 +98,12 @@ import dataclasses
 import importlib.util
 import inspect
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,6 +145,22 @@ O_TIME_ITERS = 24           # phase O: iterations a timed solve (a multiple
                             # of FACTOR_CHECK_EVERY and of the variable
                             # preconditioner's 3 branches)
 O_TURNS = ("WJD", "plain", "plain", "WJD")  # phase O: timed solves in turns
+P_LAP_N = 100               # phase P: laplacian_3d(100) f64, 1,000,000 rows
+P_RAND_N = 1 << 20          # and random_banded_spd(1<<20) f64, 1,048,576
+P_CACHE_N = 128             # P2: laplacian_3d(128), 2,097,152 rows
+P_IMAG = 0.05               # P3: A = S + 1j*P_IMAG*T (samples complex_solve)
+# P3: ||y - y_csr|| / ||y_csr|| of a ComplexWJD product (the JAX test's
+# bars), the solves' rel_tol and the CG rows' |x-1|/|1| bound
+P_TOL = {torch.complex128: 1e-13, torch.complex64: 2e-5}
+P_REL_TOL = {torch.complex128: 1e-8, torch.complex64: 1e-5}
+P_ERR = {torch.complex128: 1e-6, torch.complex64: 1e-3}
+P_MAX_ITER = {"cg": 2000, "gmres": 600, "bicgstab": 1000}
+# P3: the relative change of b that shows a count's own rounding (N2's
+# 1e-15 in f64; a few units of the last place in f32)
+P_NUDGE = {torch.complex128: 1e-15, torch.complex64: 1e-6}
+P_HIST_TOL = 1e-10          # P4: the stencil CG's history against the CSR's
+PLAN_CACHE_ENV = "ROCALUTION_TPU_TORCH_PLAN_CACHE"
+FIXTURES = "tests/fixtures/"
 REPS = 20
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
 PROF_WALL_ITERS = 256       # phase G: CG iterations timed on the host clock
@@ -240,11 +272,30 @@ def median_ms(fn):
 
 
 def rhs_of_ones(A):
-    """b = A @ 1 from the host triplet (no device SpMV involved)."""
+    """b = A @ 1 from the host triplet (no device SpMV involved); complex
+    values too."""
     d, _, p = A.numpy_triplet()
     rows = np.repeat(np.arange(A.shape[0]), np.diff(p))
-    b = np.bincount(rows, weights=d, minlength=A.shape[0]).astype(d.dtype)
-    return torch.from_numpy(b).to(A.device)
+    b = np.bincount(rows, weights=d.real, minlength=A.shape[0])
+    if np.iscomplexobj(d):
+        b = b + 1j * np.bincount(rows, weights=d.imag, minlength=A.shape[0])
+    return torch.from_numpy(b.astype(d.dtype)).to(A.device)
+
+
+def host64(v):
+    """A tensor on the host as f64, or complex128 for a complex one."""
+    return v.cpu().numpy().astype(np.complex128 if v.is_complex()
+                                  else np.float64)
+
+
+@contextlib.contextmanager
+def plan_cache(path):
+    """The port's on-disk plan cache at `path` while open (off after)."""
+    os.environ[PLAN_CACHE_ENV] = path
+    try:
+        yield
+    finally:
+        os.environ[PLAN_CACHE_ENV] = "0"
 
 
 class Counted:
@@ -314,8 +365,8 @@ def with_planes(rt, A, attach_kw, ordered=True):
     the same plan with the rows of each tile ordered by length before
     compacting (else None), for timing only (its offsets belong to the
     rows' old places, so its product is not A's): what the padding that is
-    left costs; the seconds the plan took and the seconds compacting
-    took."""
+    left costs; the seconds the plan took (a read of the plan cache, where
+    the attach wrote it) and the seconds compacting took."""
     from rocalution_tpu_torch.formats.wjd import (compact_slices,
                                                   csr_to_wjd_plan)
 
@@ -387,16 +438,19 @@ def phase_b(kernels):
         f"in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_c(rt, kernels, ops):
+def phase_c(rt, kernels, ops, plans):
     """Direct kernel against plain version on the card, per entry point.
     Roll mode: the slot product over the planes. Gather mode: the product
     over the compact slice form, against its plain version and against the
-    padded slot product. Returns the rows and, per gather key, what
-    `with_planes` built on the card (phase H uses it again)."""
+    padded slot product. The plans go through the plan cache at `plans`,
+    so `with_planes` reads back what the attach planned. Returns the rows
+    and, per gather key, what `with_planes` built on the card (phase H
+    uses it again)."""
     results, padded = {}, {}
     for key, (A, attach_kw) in ops.items():
         t0 = time.perf_counter()
-        rt.attach_wjd(A, **attach_kw)
+        with plan_cache(plans):
+            rt.attach_wjd(A, **attach_kw)
         W = A._wjd_cache
         attach_s = time.perf_counter() - t0
         if not key.startswith(W.kernel_mode):
@@ -415,16 +469,18 @@ def phase_c(rt, kernels, ops):
                 f"{key} full op", tol)
         extra = ""
         if gather:
-            W_pad, W_ordered, plan_s, compact_s = with_planes(rt, A,
-                                                              attach_kw)
+            with plan_cache(plans):
+                W_pad, W_ordered, plan_s, compact_s = with_planes(rt, A,
+                                                                  attach_kw)
             _, rel_p = rel_err(y, kernels.slots_plain(W_pad, xp),
                                f"{key} vs padded slot product", tol)
             rel_err(kernels.wjd_spmv(W, x), kernels.wjd_reference(W_pad, x),
                     f"{key} full op vs padded", tol)
             padded[key] = (W_pad, W_ordered)
             o_ms = median_ms(lambda: kernels.slots_kernel(W_ordered, xp))
-            extra = (f" ({plan_s:.1f} s planning, {compact_s:.1f} s "
-                     f"compacting when done again) | compact form "
+            extra = (f" (when done again: the plan read back from the plan "
+                     f"cache in {plan_s:.1f} s, {compact_s:.1f} s compacting)"
+                     f" | compact form "
                      f"{W.cval.numel()} elements, padding "
                      f"{W.compact_padding_ratio:.3f}x, "
                      f"{W.coff.element_size()}-byte offsets | vs padded slot "
@@ -465,8 +521,7 @@ def solve(rt, A, b, **kw):
 
 def check_solve(tag, x, info, want_status, err_tol):
     it, status = int(info.iterations), int(info.status)
-    err = float(torch.linalg.norm(x.double() - 1.0)
-                / np.sqrt(x.shape[0]))
+    err = float(np.linalg.norm(host64(x) - 1.0) / np.sqrt(x.shape[0]))
     if status != want_status or not err < err_tol:
         raise RuntimeError(f"{tag}: status {status} (want {want_status}), "
                            f"|x-1|/|1| = {err:.3e} (want < {err_tol:g})")
@@ -510,7 +565,7 @@ def phase_d(rt, kernels):
         f"launches; first solve with plan {first_s:.2f} s) "
         f"{wjd_s / it * 1e3:.3f} ms/iter | plain CSR {it_p} iters "
         f"{plain_s / it_p * 1e3:.3f} ms/iter")
-    return A, A_plain, b
+    return A, A_plain, b, (int(info.status), it)
 
 
 def phase_solve(rt, kernels, phase, tag, A, key, rel_tol, err_tol):
@@ -522,6 +577,7 @@ def phase_solve(rt, kernels, phase, tag, A, key, rel_tol, err_tol):
     say(phase, f"{tag} CG+Jacobi rel_tol {rel_tol:g}: {it} iters (status "
         f"2, |x-1|/|1|={err:.2e}, {n_l} {key} launches) "
         f"{s / it * 1e3:.3f} ms/iter")
+    return int(info.status), it
 
 
 def device_profile(run, n_wall, n_prof):
@@ -676,12 +732,14 @@ def phase_h(rt, kernels, totals, ops, single, padded):
 
 
 def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
-            err_tol):
+            err_tol, plans):
     """One operator in the windowed regime: CG + Jacobi through rt.cg (with
     attach_kw=None the plan comes from the solver's auto-attach alone),
     then the windowed kernel against its plain version, timed beside the
-    direct kernel on the same plan. Returns the kernel row and the
-    operator (phase N1 plans it again with bf16 values)."""
+    direct kernel on the same plan. An attach goes through the plan cache
+    at `plans`, so `with_planes` reads back what it planned. Returns the
+    kernel row and the operator (phase N1 plans it again with bf16
+    values)."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     t0 = time.perf_counter()
@@ -690,7 +748,8 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
     b = rhs_of_ones(A)
     t0 = time.perf_counter()
     if attach_kw is not None:
-        rt.attach_wjd(A, **attach_kw)
+        with plan_cache(plans):
+            rt.attach_wjd(A, **attach_kw)
     with Counted(kernels, totals) as c:
         x, info, _ = solve(rt, A, b, rel_tol=rel_tol, max_iter=3000)
     first_s = time.perf_counter() - t0          # plan + Jacobi + first solve
@@ -745,8 +804,9 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
         if W.data is not None or W.uloc is not None or not W.window_relative:
             raise RuntimeError(f"I {tag}: the plan keeps its slot planes on "
                                "the card")
-        W_pad, _, plan_s, compact_s = with_planes(rt, A, attach_kw,
-                                                  ordered=False)
+        with plan_cache(plans):
+            W_pad, _, plan_s, compact_s = with_planes(rt, A, attach_kw,
+                                                      ordered=False)
         _, rel_p = rel_err(y_k, kernels.slots_plain(W_pad, xp),
                            f"{key} vs padded slot product", tol)
         del W_pad
@@ -755,8 +815,9 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
                                "sums, bit for bit")
         extra = (f" | compact form {W.cval.numel()} elements, padding "
                  f"{W.compact_padding_ratio:.3f}x, {W.coff.element_size()}"
-                 f"-byte window-relative offsets ({plan_s:.1f} s planning, "
-                 f"{compact_s:.1f} s compacting when done again); vs padded "
+                 f"-byte window-relative offsets (when done again: the plan "
+                 f"read back from the plan cache in {plan_s:.1f} s, "
+                 f"{compact_s:.1f} s compacting); vs padded "
                  f"slot product {rel_p:.3e}; bit for bit the direct compact "
                  f"kernel's | window {W.win_rows * 128 * 4} bytes, read "
                  f"through the cache")
@@ -869,12 +930,14 @@ class PlanTimer:
             setattr(mod, name, fn)
 
 
-def plan_key(W):
-    """The launch counter of the entry point that serves the plan W."""
+def plan_key(W, family=None):
+    """The launch counter of the entry point that serves the plan W (a
+    single right-hand side, or `family` "spmm_")."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
-    return (f"{'win_' if windowed(W, W.x_dtype) else ''}{W.kernel_mode}_"
-            f"{TAG[W.dtype]}")
+    if family is None:
+        family = "win_" if windowed(W, W.x_dtype) else ""
+    return f"{family}{W.kernel_mode}_{TAG[W.dtype]}"
 
 
 def served_by(M):
@@ -1212,9 +1275,8 @@ def true_residual(A, x, b):
     import scipy.sparse as sp
 
     S = sp.csr_matrix(A.numpy_triplet(), shape=A.shape)
-    bh = b.double().cpu().numpy()
-    return float(np.linalg.norm(bh - S @ x.double().cpu().numpy())
-                 / np.linalg.norm(bh))
+    bh = host64(b)
+    return float(np.linalg.norm(bh - S @ host64(x)) / np.linalg.norm(bh))
 
 
 def error_of(A, x, b, ones):
@@ -2288,6 +2350,429 @@ def phase_o(rt, kernels, totals):
     say("O3", f"phase O3: {time.perf_counter() - t0:.0f} s")
 
 
+def same_triplet(tag, A, B):
+    """Raise unless B's host triplet equals A's bit for bit."""
+    if tuple(A.shape) != tuple(B.shape):
+        raise RuntimeError(f"{tag}: shape {B.shape} != {A.shape}")
+    for name, a, b in zip(("data", "indices", "indptr"), A.numpy_triplet(),
+                          B.numpy_triplet()):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError(f"{tag}: {name} differs from the written "
+                               "operator's")
+
+
+def p1_operator(rt, kernels, totals, tag, B, want, plan_s):
+    """CG + Jacobi through the kernels on an operator read from a file:
+    phase D's or E's status and count (within 1 where the plan spills: the
+    spill's index_add_ sums in no fixed order), |x-1|/|1| < 1e-6, launches
+    of the plan's entry point at least one an iteration, and the plan's
+    kernel held against its plain versions."""
+    key = plan_key(B._wjd_cache)
+    b = rhs_of_ones(B)
+    with Counted(kernels, totals) as c:
+        x, info, s = solve(rt, B, b, rel_tol=1e-8, max_iter=2000)
+    it, err = check_solve(f"P1 {tag}", x, info, want[0], 1e-6)
+    slack = 1 if B._wjd_cache.spill_row.numel() else 0
+    if abs(it - want[1]) > slack or c.got[key] < it + 1:
+        raise RuntimeError(f"P1 {tag}: {it} iterations (want {want[1]}), "
+                           f"{c.got[key]} {key} launches")
+    held = hold_parts(rt, kernels, "P1", tag, [("A", B)])
+    return (f"plan {plan_s:.2f} s | CG+Jacobi status {want[0]}, {it} iters "
+            f"(want {want[1]}), |x-1|/|1| {err:.2e}, {s / it * 1e3:.3f} "
+            f"ms/iter, {c.got[key]} {key} launches | kernel vs plain / plain "
+            f"CSR {held}")
+
+
+def phase_p1(rt, kernels, totals, want, tmp, plans):
+    """IO at a million rows: laplacian_3d(P_LAP_N) and
+    random_banded_spd(P_RAND_N) f64 written with write_csr and
+    write_rocsparseio (the first with write_mtx too), each file read back
+    onto the card (the triplet bit for bit) and solved with CG + Jacobi
+    through the kernels at phase D's and E's status and count. The plans
+    go through the plan cache at `plans`, where phase C left these two
+    operators' plans. Then the repo's fixtures: the golden rocsparseio
+    file's values, CG + IC(0) on gr_30_30_like.mtx and GMRES(30) + ILU(0)
+    on convdiff_24.mtx to 1e-8 (tests/test_fixtures.py). Returns the
+    laplacian read back from its binary file, with its plan."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    io = rt.io
+    ops = (("lap", f"laplacian_3d({P_LAP_N})",
+            lambda: rt.laplacian_3d(P_LAP_N), want["D"]),
+           ("rand", f"random_banded_spd({P_RAND_N})",
+            lambda: rt.random_banded_spd(P_RAND_N), want["E"]))
+    kept = None
+    with plan_cache(plans):
+        for key, name, make, want_op in ops:
+            A, gen_s = timed(make)
+            formats = [("binary", io.write_csr, io.read_csr, ".npz"),
+                       ("rocsparseio", io.write_rocsparseio,
+                        io.read_rocsparseio, "")]
+            if key == "lap":
+                formats.append(("mtx", io.write_mtx, io.read_mtx, ""))
+            for fmt, write, read, suffix in formats:
+                path = os.path.join(tmp, f"{key}.{fmt}")
+                _, write_s = timed(lambda: write(path, A))
+                size = os.path.getsize(path + suffix)
+                B, read_s = timed(lambda: read(path + suffix))
+                os.unlink(path + suffix)
+                same_triplet(f"P1 {name} {fmt}", A, B)
+                _, plan_s = timed(lambda: as_operator(B))
+                text = p1_operator(rt, kernels, totals, f"{name} {fmt}", B,
+                                   want_op, plan_s)
+                say("P1", f"{name} f64 nnz={A.nnz} (generated in "
+                    f"{gen_s:.1f} s): {fmt} file {size / 2**20:.1f} MiB, "
+                    f"written in {write_s:.2f} s, read onto the card in "
+                    f"{read_s:.2f} s, triplet bit for bit | {text}")
+                if key == "lap" and fmt == "binary":
+                    kept = B
+                del B
+            del A
+            torch.cuda.empty_cache()
+    golden = io.read_rocsparseio(FIXTURES + "golden_csr.rocsparseio")
+    d, i, p = golden.numpy_triplet()
+    if (golden.shape != (4, 5) or list(p) != [0, 2, 3, 3, 5]
+            or list(i) != [0, 3, 1, 2, 4]
+            or list(d) != [1.5, -2.0, 3.25, 0.5, 7.0]):
+        raise RuntimeError("P1: the golden rocsparseio file reads wrong")
+    for fname, solver, make_m, kw in (
+            ("gr_30_30_like.mtx", rt.cg, rt.ic, {}),
+            ("convdiff_24.mtx", rt.gmres, lambda A: rt.ilu(A, 0),
+             {"basis_size": 30})):
+        A = io.read_mtx(FIXTURES + fname)
+        b = rhs_of_ones(A)
+        with Counted(kernels, totals) as c:
+            (x, info), s = timed(lambda: solver(A, b, M=make_m(A),
+                                                rel_tol=1e-8, max_iter=500,
+                                                **kw))
+        res = true_residual(A, x, b)
+        if int(info.status) not in (1, 2) or not res <= 1.1e-8:
+            raise RuntimeError(f"P1 {fname}: status {int(info.status)}, "
+                               f"|b-Ax|/|b| {res:.3e}")
+        held = hold_parts(rt, kernels, "P1", fname, [("A", A)])
+        say("P1", f"{fname} n={A.shape[0]} nnz={A.nnz}, "
+            f"{solver.__name__}: status {int(info.status)}, "
+            f"{int(info.iterations)} iters, |b-Ax|/|b| {res:.2e} in "
+            f"{s:.2f} s | launches { {k: n for k, n in c.got.items() if n} } "
+            f"| kernel vs plain / plain CSR {held}")
+    say("P1", "golden_csr.rocsparseio: (4, 5), its five values as written")
+    return kept
+
+
+def phase_p2(rt, kernels, totals, tmp):
+    """The plan cache: laplacian_3d(P_CACHE_N) planned twice with the cache
+    at a fresh directory, cold then warm; every array of the two plans
+    equal; the warm plan on the card through its direct (roll_f64) and
+    windowed (win_roll_f64) kernels, each held against its plain version,
+    and a CG + Jacobi through it."""
+    from rocalution_tpu_torch.formats.wjd import (_plan_to_wjd,
+                                                  csr_to_wjd_plan)
+
+    A, gen_s = timed(lambda: rt.laplacian_3d(P_CACHE_N))
+    trip = A.numpy_triplet()
+    d = os.path.join(tmp, "p2_plans")
+    with plan_cache(d):
+        cold, cold_s = timed(lambda: csr_to_wjd_plan(*trip, A.shape))
+        warm, warm_s = timed(lambda: csr_to_wjd_plan(*trip, A.shape))
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    if set(cold) != set(warm) or warm is cold:
+        raise RuntimeError("P2: the warm plan is not a plan read back")
+    for k in cold:
+        a, b = cold[k], warm[k]
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise RuntimeError(f"P2: warm plan's {k} differs")
+        elif a != b:
+            raise RuntimeError(f"P2: warm plan's {k} {b!r} != {a!r}")
+    W, up_s = timed(lambda: _plan_to_wjd(warm, A.device))
+    object.__setattr__(A, "_wjd_cache", W)
+    key = plan_key(W)
+    if key != "win_roll_f64" or W.kernel_mode != "roll":
+        raise RuntimeError(f"P2: the plan takes {key}")
+    x = random_x(rt, A, W.dtype)
+    xp = kernels.pad_x(W, x)
+    _, rel_d = rel_err(kernels.slots_kernel(W, xp),
+                       kernels.slots_plain(W, xp), "P2 roll_f64", TOL[W.dtype])
+    _, rel_w = rel_err(kernels.wjd_spmv(W, x), kernels.wjd_reference(W, x),
+                       "P2 win_roll_f64", TOL[W.dtype])
+    b = rhs_of_ones(A)
+    with Counted(kernels, totals) as c:
+        x, info, s = solve(rt, A, b, rel_tol=1e-8, max_iter=2000)
+    it, err = check_solve("P2", x, info, 2, 1e-6)
+    if c.got[key] < it + 1:
+        raise RuntimeError(f"P2: {c.got[key]} {key} launches, {it} iters")
+    say("P2", f"laplacian_3d({P_CACHE_N}) f64 n={A.shape[0]} nnz={A.nnz} "
+        f"(generated in {gen_s:.1f} s): plan cold {cold_s:.2f} s (planning "
+        f"and writing {size / 2**20:.1f} MiB), warm {warm_s:.2f} s (read "
+        f"back), every array equal; upload {up_s:.2f} s | roll_f64 vs plain "
+        f"{rel_d:.1e}, win_roll_f64 vs plain {rel_w:.1e} (tol "
+        f"{TOL[W.dtype]:g}) | CG+Jacobi status 2, {it} iters, |x-1|/|1| "
+        f"{err:.2e}, {s / it * 1e3:.3f} ms/iter, {c.got[key]} {key} "
+        "launches")
+
+
+def complex_of(rt, A, mirror, cdt):
+    """A + 1j*P_IMAG*T on A's pattern, T symmetric from a seeded draw
+    (`mirror` maps each entry to its transposed one), of type cdt."""
+    d, i, p = A.numpy_triplet()
+    v = np.random.default_rng(21).standard_normal(len(d))
+    vals = (d + 1j * P_IMAG * (v + v[mirror])).astype(cdt)
+    return rt.CSR.from_arrays(vals, i, p, A.shape)
+
+
+def four_spmv(kernels, C, x):
+    """The other layout of a complex product, for timing: four real
+    products, x.real and x.imag each padded into the planes' buffers."""
+    xr, xi = x.real, x.imag
+    return torch.complex(
+        kernels.wjd_spmv(C.re, xr) - kernels.wjd_spmv(C.im, xi),
+        kernels.wjd_spmv(C.re, xi) + kernels.wjd_spmv(C.im, xr))
+
+
+def p3_product(rt, kernels, tag, A, A_p, C):
+    """A ComplexWJD's product through the kernels (two SpMM launches)
+    against the reference's formula over the planes' plain products (TOL
+    of the planes' type, max-norm) and the plain complex CSR product
+    (P_TOL, norm-wise); the four-product layout held as well. The two
+    layouts side by side: device time of a product (beside the plain
+    versions, the library call and the bound: the two value planes, x and
+    y once), host time of a call, and CG + Jacobi ms/iter over
+    O_TIME_ITERS iterations in turns after a warm-up solve of each (the
+    four-product layout as a matrix-free operator)."""
+    rng = np.random.default_rng(5)
+    n = A.shape[0]
+    x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(
+        n)).astype(rt.config.numpy_dtype(A.dtype))).cuda()
+    tol = TOL[C.re.dtype]
+    y = kernels.cwjd_spmv(C, x)
+    _, rel = rel_err(y, kernels.cwjd_reference(C, x), f"P3 {tag}", tol)
+    _, rel4 = rel_err(four_spmv(kernels, C, x), y, f"P3 {tag} four", tol)
+    y_p = rt.spmv(A_p, x)
+    nrel = float(torch.linalg.norm(y - y_p) / torch.linalg.norm(y_p))
+    if not nrel <= P_TOL[A.dtype]:
+        raise RuntimeError(f"P3 {tag}: ||y - y_csr||/||y_csr|| {nrel:.3e}")
+    layouts = {"two SpMM": lambda v: kernels.cwjd_spmv(C, v),
+               "four SpMV": lambda v: four_spmv(kernels, C, v)}
+    dev = {k: median_ms(lambda: f(x)) for k, f in layouts.items()}
+    host = {k: host_us(f, x)[0] for k, f in layouts.items()}
+    p_ms = median_ms(lambda: kernels.cwjd_reference(C, x))
+    c_ms = median_ms(lambda: rt.spmv(A_p, x))
+    lib = library_ms(A_p, x)
+    vsz, xsz = C.re.dtype.itemsize, A.dtype.itemsize
+    bound = (2 * C.re.nnz * vsz + 2 * n * xsz) / PEAK_BYTES * 1e6
+    b, M = rhs_of_ones(A), rt.jacobi(A)
+    kw = dict(rel_tol=1e-30, max_iter=O_TIME_ITERS,
+              check_every=FACTOR_CHECK_EVERY)
+    ops = {"two SpMM": A, "four SpMV": layouts["four SpMV"]}
+    for op in ops.values():                     # warm-up
+        rt.cg(op, b, M=M, **kw)
+    cg_ms = []
+    for name in ("two SpMM", "four SpMV", "four SpMV", "two SpMM"):
+        (_, inf_), t = timed(lambda: rt.cg(ops[name], b, M=M, **kw))
+        cg_ms.append(f"{name} {t / int(inf_.iterations) * 1e3:.3f}")
+    return (f"vs plain planes {rel:.1e} (tol {tol:g}), vs plain complex CSR "
+            f"{nrel:.1e} (tol {P_TOL[A.dtype]:g}), four-product layout vs "
+            f"it {rel4:.1e} | device us: "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in dev.items())
+            + f", plain planes {p_ms * 1e3:.1f}, plain complex CSR "
+            f"{c_ms * 1e3:.1f}, library {lib * 1e3:.1f}, bound {bound:.1f} "
+            "(bytes) | host us a call: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+            + f" | CG + Jacobi ms/iter over {O_TIME_ITERS} iterations in "
+            "turns " + ", ".join(cg_ms))
+
+
+def p3_solve(rt, kernels, totals, tag, name, A, A_p, b):
+    """One complex solve with Jacobi through the kernels (counted) and
+    plain: the same status, counts within 1 (CG) or 2 (GMRES, BiCGStab)
+    unless rounding rules them (BiCGStab and complex64 rows: where the
+    plain counts at b and b(1 +- P_NUDGE) spread by more than 2, as in
+    phase N2, the row is held to its status), |x-1|/|1| (CG) or the true
+    residual (`res_bound`) under its bound, two launches a product;
+    ms/iter in turns (O_TURNS) over O_TIME_ITERS iterations."""
+    fn = getattr(rt, name)
+    M, M_p = rt.jacobi(A), rt.jacobi(A_p)
+    kw = dict(rel_tol=P_REL_TOL[A.dtype], max_iter=P_MAX_ITER[name],
+              check_every=FACTOR_CHECK_EVERY)
+    if name == "gmres":
+        kw["basis_size"] = 30
+    with Counted(kernels, totals) as c:
+        (x, info), s = timed(lambda: fn(A, b, M=M, **kw))
+    with Plain(rt), Counted(kernels, {}) as cp:
+        (x_p, info_p), s_p = timed(lambda: fn(A_p, b, M=M_p, **kw))
+        nudged = []
+        if name == "bicgstab" or A.dtype == torch.complex64:
+            e = P_NUDGE[A.dtype]
+            nudged = [int(fn(A_p, b * (1 + e), M=M_p, **kw)[1].iterations)
+                      for e in (e, -e)]
+    it, st = int(info.iterations), int(info.status)
+    it_p, st_p = int(info_p.iterations), int(info_p.status)
+    counts = [it_p] + nudged
+    ruled = max(counts) - min(counts) > 2
+    slack = 1 if name == "cg" else 2
+    if st != st_p or (not ruled and abs(it - it_p) > slack):
+        raise RuntimeError(f"P3 {tag} {name}: {it} iterations status {st}, "
+                           f"plain {it_p} status {st_p} (plain counts "
+                           f"{counts})")
+    rdt = torch.float64 if A.dtype == torch.complex128 else torch.float32
+    errs = []
+    for path, x_, info_ in (("WJD", x, info), ("plain", x_p, info_p)):
+        if name == "cg":
+            e = float(np.linalg.norm(host64(x_) - 1.0) / np.sqrt(x_.shape[0]))
+            bound = P_ERR[A.dtype]
+        else:
+            e = true_residual(A, x_, b)
+            bound = max(RES_BOUND[0] * float(info_.final_res)
+                        / float(info_.init_res), RES_BOUND[1][rdt])
+        if st == 2 and not e <= bound:
+            raise RuntimeError(f"P3 {tag} {name} {path}: error {e:.3e} over "
+                               f"{bound:.1e}")
+        errs.append(e)
+    key = plan_key(A._wjd_cache.re, "spmm_")
+    applies = {"cg": it + 1, "gmres": it, "bicgstab": 2 * it}[name]
+    if c.got[key] < 2 * applies or any(cp.got.values()):
+        raise RuntimeError(f"P3 {tag} {name}: {c.got[key]} {key} launches "
+                           f"for {it} iterations; plain {cp.got}")
+    paths = {"WJD": (A, M, contextlib.nullcontext()),
+             "plain": (A_p, M_p, Plain(rt))}
+    time_kw = dict(kw, rel_tol=1e-30, max_iter=O_TIME_ITERS)
+    ms = []
+    for path in O_TURNS:
+        A_, M_, ctx = paths[path]
+        with ctx:
+            (_, inf_), t = timed(lambda: fn(A_, b, M=M_, **time_kw))
+        ms.append(f"{path} {t / max(int(inf_.iterations), 1) * 1e3:.3f}")
+    what = "|x-1|/|1|" if name == "cg" else "|b-Ax|/|b|"
+    say("P3", f"{tag} {name.upper()} + Jacobi rel_tol {kw['rel_tol']:g}: "
+        f"WJD status {st}, {it} iters, {what} {errs[0]:.2e}, {s:.2f} s | "
+        f"plain status {st_p}, {it_p} iters, {errs[1]:.2e}, {s_p:.2f} s"
+        + (f" | plain counts at b, b(1 +- {P_NUDGE[A.dtype]:g}) {counts}"
+           + (": ruled by rounding, held to the status" if ruled else "")
+           if nudged else "")
+        + f" | {c.got[key]} {key} launches ({c.got[key] / max(it, 1):.2f} "
+        f"an iteration) | ms/iter over {O_TIME_ITERS} iterations in turns "
+        + ", ".join(ms))
+
+
+def phase_p3(rt, kernels, totals):
+    """Complex operators at a million rows: laplacian_3d(P_LAP_N) (roll
+    planes) and random_banded_spd(P_RAND_N) (gather planes), each plus
+    1j*P_IMAG*T with T a seeded symmetric matrix on its pattern, in
+    complex128 (f64 planes) and complex64 (f32 planes): the ComplexWJD
+    product held against its plain versions and timed (`p3_product`), then
+    complex CG, GMRES(30) and BiCGStab with Jacobi through the kernels and
+    plain (`p3_solve`)."""
+    from rocalution_tpu_torch.ops.spmv import as_operator
+
+    for name, make, mode in (
+            (f"laplacian_3d({P_LAP_N})", lambda: rt.laplacian_3d(P_LAP_N),
+             "roll"),
+            (f"random_banded_spd({P_RAND_N})",
+             lambda: rt.random_banded_spd(P_RAND_N), "gather")):
+        S = make()
+        d, i, p = S.numpy_triplet()
+        rows = np.repeat(np.arange(S.shape[0]), np.diff(p))
+        # the pattern is symmetric: entry mirror[k] of the CSR order holds
+        # the transposed place of entry k
+        mirror = np.lexsort((rows, i))
+        del rows
+        for cdt in (np.complex128, np.complex64):
+            A = complex_of(rt, S, mirror, cdt)
+            _, plan_s = timed(lambda: as_operator(A))
+            C = A._wjd_cache
+            if (not isinstance(C, rt.ComplexWJD) or C.re.kernel_mode != mode
+                    or C.im.kernel_mode != mode):
+                raise RuntimeError(f"P3 {name}: {type(C).__name__} "
+                                   f"{getattr(C, 're', C)}")
+            with Plain(rt):
+                A_p = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+            tag = f"{name} {np.dtype(cdt).name}"
+            say("P3", f"{tag}: ComplexWJD of two {TAG[C.re.dtype]} {mode} "
+                f"planes, planned in {plan_s:.1f} s (re: {plan_line(A, C.re)}"
+                f"; im: spill {C.im.spill_row.numel()}) | "
+                + p3_product(rt, kernels, tag, A, A_p, C))
+            b = rhs_of_ones(A)
+            for solver in ("cg", "gmres", "bicgstab"):
+                p3_solve(rt, kernels, totals, tag, solver, A, A_p, b)
+            del A, A_p, C, b
+            torch.cuda.empty_cache()
+        del S, mirror
+
+
+def phase_p4(rt, kernels, totals, A):
+    """The stencil: CG + Jacobi on laplace3d_stencil(P_LAP_N), matrix-free,
+    beside the same CG on laplacian_3d(P_LAP_N) through roll_f64 (A, read
+    back in P1): the same status and count, histories within P_HIST_TOL;
+    the stencil apply against the plain CSR apply; ms/iter of each in
+    turns after the counted solves, and of spmv_add."""
+    St = rt.laplace3d_stencil(P_LAP_N)
+    b = rhs_of_ones(A)
+    kw = dict(rel_tol=1e-8, max_iter=2000, record_history=True)
+    x = random_x(rt, A, torch.float64)
+    with Plain(rt):
+        A_p = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+    _, rel = rel_err(rt.spmv(St, x), rt.spmv(A_p, x), "P4 stencil apply",
+                     TOL[torch.float64])
+    held = hold_parts(rt, kernels, "P4", "laplacian_3d", [("A", A)])
+    runs = {}
+    for path, Op in (("stencil", St), ("CSR", A)):
+        with Counted(kernels, totals) as c:
+            (xs, info), s = timed(lambda: rt.cg(Op, b, M=rt.jacobi(Op),
+                                                **kw))
+        check_solve(f"P4 {path}", xs, info, 2, 1e-6)
+        runs[path] = (int(info.iterations), info.history.cpu().numpy(), s,
+                      {k: n for k, n in c.got.items() if n})
+    (it_s, h_s, s_s, got_s), (it_a, h_a, s_a, got_a) = runs.values()
+    k = int((~np.isnan(h_a)).sum())
+    hist = float(np.max(np.abs(h_s[:k] - h_a[:k]) / np.abs(h_a[:k])))
+    if (it_s != it_a or got_s or got_a.get(plan_key(A._wjd_cache), 0)
+            < it_a + 1
+            or not hist <= P_HIST_TOL or not np.isnan(h_s[k:]).all()):
+        raise RuntimeError(f"P4: stencil {it_s} iterations (launches "
+                           f"{got_s}), CSR {it_a} ({got_a}), histories "
+                           f"apart {hist:.2e}")
+    time_kw = dict(kw, rel_tol=1e-30, max_iter=O_TIME_ITERS,
+                   record_history=False)
+    ms = []
+    Ms = {"stencil": rt.jacobi(St), "CSR": rt.jacobi(A)}
+    for path in ("stencil", "CSR", "CSR", "stencil"):
+        Op = St if path == "stencil" else A
+        (_, inf_), t = timed(lambda: rt.cg(Op, b, M=Ms[path], **time_kw))
+        ms.append(f"{path} {t / int(inf_.iterations) * 1e3:.3f}")
+    y = random_x(rt, A, torch.float64)
+    add = {name: median_ms(lambda: rt.spmv_add(Op, x, y, -1.0))
+           for name, Op in (("stencil", St), ("roll_f64", A),
+                            ("plain CSR", A_p))}
+    say("P4", f"laplace3d_stencil({P_LAP_N}) CG+Jacobi: status 2, {it_s} "
+        f"iters, {s_s:.2f} s, no kernel launched | laplacian_3d({P_LAP_N}) "
+        f"through {plan_key(A._wjd_cache)}: {it_a} iters, {s_a:.2f} s, "
+        f"{got_a} | histories "
+        f"apart {hist:.1e} (tol {P_HIST_TOL:g}); stencil apply vs plain "
+        f"CSR {rel:.1e}; roll_f64 vs plain / plain CSR {held} | ms/iter "
+        f"over {O_TIME_ITERS} iterations in turns " + ", ".join(ms)
+        + " | spmv_add " + ", ".join(f"{k} {v * 1e3:.1f} us"
+                                     for k, v in add.items()))
+
+
+def phase_p(rt, kernels, totals, want, plans):
+    """IO (P1), the plan cache (P2), complex operators (P3) and the
+    stencil (P4), in f64 unless a row says otherwise."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lap = phase_p1(rt, kernels, totals, want, tmp, plans)
+        say("P1", f"phase P1: {time.perf_counter() - t0:.0f} s")
+        t0 = time.perf_counter()
+        phase_p2(rt, kernels, totals, tmp)
+        torch.cuda.empty_cache()
+        say("P2", f"phase P2: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    phase_p3(rt, kernels, totals)
+    say("P3", f"phase P3: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    phase_p4(rt, kernels, totals, lap)
+    say("P4", f"phase P4: {time.perf_counter() - t0:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
@@ -2295,6 +2780,11 @@ def main():
     import rocalution_tpu_torch as rt
     from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
+    # no phase writes under ~: the plan cache is off but where a phase
+    # points it at this run's directory (C, I and P1: an operator planned
+    # again is read back) or at a fresh one (P2)
+    os.environ[PLAN_CACHE_ENV] = "0"
+    plans = tempfile.TemporaryDirectory(prefix="chip_smoke_plans_")
     t_start = time.perf_counter()
     mark = [t_start]
 
@@ -2320,16 +2810,17 @@ def main():
         "roll_f32": (lap32, {}),
         "gather_f32": (rand32, {}),
     }
-    measured, padded = phase_c(rt, kernels, ops)
+    measured, padded = phase_c(rt, kernels, ops, plans.name)
     lap("C")
 
     # main paths: each runs with the counts set to 0 just before it and
     # read just after; `totals` adds them up per entry point
     totals = {}
     with Counted(kernels, totals):
-        A, A_plain, b = phase_d(rt, kernels)
-        phase_solve(rt, kernels, "E", f"random_banded_spd({RAND_N}) f64",
-                    rand64, "gather_f64", 1e-8, 1e-6)
+        A, A_plain, b, want_d = phase_d(rt, kernels)
+        want_e = phase_solve(rt, kernels, "E",
+                             f"random_banded_spd({RAND_N}) f64", rand64,
+                             "gather_f64", 1e-8, 1e-6)
         phase_solve(rt, kernels, "F", f"random_banded_spd({RAND_N}) f32",
                     rand32, "gather_f32", 1e-5, 1e-3)
         phase_solve(rt, kernels, "F", f"laplacian_3d({LAP_N}) f32 unsplit",
@@ -2353,7 +2844,7 @@ def main():
     row, A = phase_i(
         rt, kernels, totals, f"laplacian_3d({WIN_LAP64_N}) f64 auto-attach",
         lambda: rt.laplacian_3d(WIN_LAP64_N), "win_roll_f64", None, 1e-8,
-        1e-6)
+        1e-6, plans.name)
     measured.update(row)
     del A
     torch.cuda.empty_cache()
@@ -2366,7 +2857,7 @@ def main():
              lambda: rt.random_banded_spd(WIN_RAND_N, dtype=np.float32),
              "win_gather_f32", 1e-5)):
         row, A = phase_i(rt, kernels, totals, tag, make, key, {}, rel_tol,
-                         1e-3)
+                         1e-3, plans.name)
         measured.update(row)
         win_ops[tag] = (A, {})
         torch.cuda.empty_cache()
@@ -2392,6 +2883,9 @@ def main():
     lap("N2")
     phase_o(rt, kernels, totals)
     lap("O")
+    phase_p(rt, kernels, totals, {"D": want_d, "E": want_e}, plans.name)
+    lap("P")
+    plans.cleanup()
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

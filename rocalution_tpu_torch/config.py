@@ -67,6 +67,8 @@ def resolve_device(device=None) -> torch.device:
 _NP_OF_TORCH = {
     torch.float64: np.dtype(np.float64),
     torch.float32: np.dtype(np.float32),
+    torch.complex128: np.dtype(np.complex128),
+    torch.complex64: np.dtype(np.complex64),
     torch.int64: np.dtype(np.int64),
     torch.int32: np.dtype(np.int32),
 }

@@ -1,5 +1,6 @@
 """Matrix storage formats (reference: src/base/matrix_formats.hpp:38-48,
-enum DENSE/CSR/MCSR/BCSR/COO/DIA/ELL/HYB) plus WJD."""
+enum DENSE/CSR/MCSR/BCSR/COO/DIA/ELL/HYB) plus WJD, ComplexWJD and the
+matrix-free Stencil."""
 
 from .base import MatrixBase
 from .bcsr import BCSR
@@ -11,9 +12,11 @@ from .dia import DIA
 from .ell import ELL
 from .hyb import HYB
 from .mcsr import MCSR
-from .wjd import WJD
+from .stencil import Stencil, laplace2d_stencil, laplace3d_stencil
+from .wjd import WJD, ComplexWJD
 
 __all__ = [
     "MatrixBase", "CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE",
-    "WJD", "FORMATS", "cast_values", "convert", "to_csr",
+    "Stencil", "WJD", "ComplexWJD", "FORMATS", "cast_values", "convert",
+    "laplace2d_stencil", "laplace3d_stencil", "to_csr",
 ]

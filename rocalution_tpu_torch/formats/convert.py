@@ -23,7 +23,9 @@ from .dia import DIA
 from .ell import ELL
 from .hyb import HYB
 from .mcsr import MCSR
-from .wjd import TILE, WJD, compact_entries, from_csr as _wjd_from_csr
+from .stencil import Stencil
+from .wjd import (TILE, WJD, ComplexWJD, compact_entries,
+                  from_csr as _wjd_from_csr)
 
 FORMATS = {
     "CSR": CSR,
@@ -104,6 +106,15 @@ def to_csr(mat) -> CSR:
                      np.concatenate([vals, diag[diag != 0]]))
     if isinstance(mat, DENSE):
         return CSR.from_dense(get_host(mat, "data"), device=dev)
+    if isinstance(mat, Stencil):
+        return mat.to_csr()
+    if isinstance(mat, ComplexWJD):
+        re, im = to_csr(mat.re), to_csr(mat.im)
+        vdt = np.dtype(mat.value_dtype)
+        rr, rc, rv = _coo_of(re)
+        ir, ic, iv = _coo_of(im)
+        return build(np.concatenate([rr, ir]), np.concatenate([rc, ic]),
+                     np.concatenate([rv.astype(vdt), 1j * iv.astype(vdt)]))
     if isinstance(mat, WJD):
         # rebuild COO from the slot planes, or from the compact slice form
         # where a gather-mode plan carries no planes (explicit zeros are

@@ -169,7 +169,8 @@ _FF_COST_ROLL = 18.0
 def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                     max_slots: Optional[int] = 128,
                     kernel_mode: str = "auto",
-                    values_dtype=None, split_dia=False) -> dict:
+                    values_dtype=None, split_dia=False,
+                    cache: bool = True) -> dict:
     """Host-side CSR -> WJD *plan* (numpy arrays + static fields only).
 
     ``max_slots`` caps slots per tile; entries in hotter slots spill to a
@@ -188,6 +189,17 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
     rounding is torch's cast, which takes an f64 value through f32 as
     ml_dtypes does: the bits equal the JAX planner's.
 
+    ``vals`` may be (nnz, P): P value planes on one pattern, as for the
+    real and imaginary parts of a complex operator (`from_csr`). The layout
+    depends on the pattern and the value type only, so the plan is the
+    plan of each plane alone, and its value arrays carry the trailing P
+    axis.
+
+    ``cache``: persist and reuse the finished plan on disk, keyed by a
+    content hash of the triplet and the options (formats/wjd_cache.py), so
+    the planning cost is paid once per machine; plans of fewer than
+    100,000 entries are always planned again.
+
     A deliberate difference from the JAX package: the port's default keeps
     every diagonal in the slots, on every device. The reference's "auto"
     rule sends the globally dense diagonals of an f32 operator to a DIA
@@ -201,6 +213,20 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
     cols = np.asarray(cols, dtype=np.int64)
     indptr = np.asarray(indptr, dtype=np.int64)
     nnz = len(vals)
+    planes = vals.shape[1:]
+
+    cache_key = None
+    if cache and nnz >= 100_000:          # small plans replan faster than IO
+        from . import wjd_cache
+
+        cache_key = wjd_cache.plan_key(vals, cols, indptr, shape, {
+            "wlog": wlog, "max_slots": max_slots,
+            "kernel_mode": kernel_mode, "values_dtype": values_dtype,
+            "split_dia": split_dia,
+        })
+        hit = wjd_cache.load_plan(cache_key)
+        if hit is not None:
+            return hit
 
     rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
 
@@ -219,7 +245,7 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
         if len(qual):
             mask = np.isin(d_all, qual)
             dia_offsets = tuple(int(o) for o in qual)
-            dia_data = np.zeros((len(qual), n), vals.dtype)
+            dia_data = np.zeros((len(qual), n) + planes, vals.dtype)
             ki = np.searchsorted(qual, d_all[mask])
             dia_data[ki, rows[mask]] = vals[mask]
             keep = ~mask
@@ -239,6 +265,10 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                     plan_out[key] = _round_to_bf16(plan_out[key])
             if slots:
                 plan_out["value_dtype"] = "bfloat16"
+        if cache_key is not None:
+            from . import wjd_cache
+
+            wjd_cache.save_plan(cache_key, plan_out)
         return plan_out
 
     if nnz == 0:
@@ -369,7 +399,7 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
         K = cap
     else:
         spill = (np.zeros(0, np.int64), np.zeros(0, np.int64),
-                 np.zeros(0, vals.dtype))
+                 np.zeros((0,) + planes, vals.dtype))
         rows_k, vals_k, u_k, t_k, k_e = rows, vals, u, t, k_of_entry
         K = int(k_of_slot.max()) + 1
 
@@ -415,7 +445,7 @@ def _assemble(vals_k, rows_k, u_k, t_k, k_e, K, n, m, nnz, wlog,
 
     dtype = vals_k.dtype if vals_k.size else np.asarray(spill[2]).dtype
     udtype = np.uint8 if win <= 256 else np.int16
-    val_arr = np.zeros((Tp, K, 8, 128), dtype=dtype)
+    val_arr = np.zeros((Tp, K, 8, 128) + vals_k.shape[1:], dtype=dtype)
     u_arr = np.zeros((Tp, K, 8, 128), dtype=np.int32)
     brow_arr = np.zeros((Tp, K), dtype=np.int64)
     diag_arr = np.full((Tp, K), -1, dtype=np.int32)
@@ -775,11 +805,61 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     )
 
 
-def from_csr(A, device=None, **kwargs) -> WJD:
+@dataclasses.dataclass(frozen=True)
+class ComplexWJD(MatrixBase):
+    """A complex operator as two real WJD planes on one pattern, its real
+    part `re` and its imaginary part `im` (the reference's c/z csrmv,
+    hip_sparse.hpp rocsparseCcsrmv/Zcsrmv):
+    y = (Ar xr - Ai xi) + i (Ar xi + Ai xr). complex64 values ride f32
+    planes, complex128 values f64 planes (ops/cuda/spmv_wjd.py:
+    `cwjd_spmv`). Each plane is the plan of its part alone, so they share
+    the layout; a gather-mode plane's compact form drops its own zeros."""
+
+    re: WJD
+    im: WJD
+    value_dtype: str         # numpy name of the values' type
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.re.shape
+
+    @property
+    def nnz(self) -> int:
+        return self.re.nnz
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (torch.complex64 if self.value_dtype == "complex64"
+                else torch.complex128)
+
+    @property
+    def device(self) -> torch.device:
+        return self.re.device
+
+
+def _plane(plan: dict, j: int) -> dict:
+    """The plan of value plane j of a plan made from (nnz, P) values."""
+    out = dict(plan)
+    for key in ("data", "spill_val", "dia_data"):
+        if plan.get(key) is not None:
+            out[key] = np.ascontiguousarray(plan[key][..., j])
+    return out
+
+
+def from_csr(A, device=None, **kwargs):
     """Convert a host-built CSR to WJD on ``device`` (default: A's): plan
-    on the host (kwargs go to `csr_to_wjd_plan`), then upload once."""
+    on the host (kwargs go to `csr_to_wjd_plan`), then upload once. A
+    complex CSR gives a `ComplexWJD`: its real and imaginary parts are
+    planned together (the layout once, two value planes), as the real
+    type of the values."""
     d, i, p = A.numpy_triplet()
+    device = A.device if device is None else device
     if np.iscomplexobj(d):
-        raise NotImplementedError("complex WJD is not ported yet")
+        real_dt = np.float64 if d.dtype == np.complex128 else np.float32
+        plan = csr_to_wjd_plan(np.stack([d.real, d.imag], axis=1).astype(
+            real_dt), i, p, A.shape, **kwargs)
+        return ComplexWJD(re=_plan_to_wjd(_plane(plan, 0), device),
+                          im=_plan_to_wjd(_plane(plan, 1), device),
+                          value_dtype=np.dtype(d.dtype).name)
     return _plan_to_wjd(csr_to_wjd_plan(d, i, p, A.shape, **kwargs),
-                        device=A.device if device is None else device)
+                        device=device)

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .formats import BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD
+from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
+                      ComplexWJD)
 from .formats.base import set_host_cache, to_device
 from .formats.wjd import _plan_to_wjd
 
@@ -61,6 +62,11 @@ def matrix_from_numpy(fmt: str, fields: dict, device=None):
     object of the same name as numpy arrays and plain values."""
     device = resolve_device(device)
     fmt = fmt.upper()
+    if fmt == "COMPLEXWJD":
+        # the JAX ComplexWJD's two real planes, each as a WJD's fields
+        return ComplexWJD(re=wjd_from_numpy(fields["re"], device=device),
+                          im=wjd_from_numpy(fields["im"], device=device),
+                          value_dtype=str(fields["value_dtype"]))
     shape = tuple(int(v) for v in fields["shape"])
     if fmt == "CSR":
         return csr_from_numpy(fields["data"], fields["indices"],

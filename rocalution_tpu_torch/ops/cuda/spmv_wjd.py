@@ -25,6 +25,11 @@ and sum in f32 into an f32 y (its `acc_dt`). A bfloat16 x is widened to
 f32 first, which is exact and is the product the JAX kernels compute. The
 spill and the DIA part promote to f32 the same way.
 
+A complex operator is a `ComplexWJD`, a real and an imaginary WJD plane
+on one layout (`cwjd_spmv`): the real and imaginary parts of x go as two
+columns of one blocked product through each plane's SpMM kernel, two
+launches a product.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 PyTorch version (``slots_plain*``), which is also the oracle the kernels
 are checked against on the card.
@@ -37,7 +42,7 @@ import ctypes
 import torch
 
 from ...formats.dia import dia_apply
-from ...formats.wjd import SLICE, TILE, WJD, windowed
+from ...formats.wjd import SLICE, TILE, WJD, ComplexWJD, windowed
 from . import _build
 
 # Kernel launches per entry point, counted where the wrapper launches.
@@ -479,6 +484,40 @@ def wjd_spmm(A: WJD, X: torch.Tensor) -> torch.Tensor:
         slots = (slots_plain_compact_mrhs if A.kernel_mode == "gather"
                  else slots_plain_mrhs)
     return _apply_mrhs(A, X, slots)
+
+
+def _cwjd(C: ComplexWJD, x: torch.Tensor, real_apply, cols_apply):
+    """y = C @ x from real applies of the planes: y = (Ar xr - Ai xi) +
+    i (Ar xi + Ai xr). A complex x of shape (m,) or (m, k) is read as its
+    real view, whose rows hold (xr, xi) side by side: an (m, 2) or
+    (m, 2k) real X, row-major, the layout the SpMM kernel takes, so each
+    plane serves both parts in one blocked product (`cols_apply`). A real
+    x needs one apply a plane (`real_apply`)."""
+    if not x.is_complex():
+        return torch.complex(real_apply(C.re, x), real_apply(C.im, x))
+    m = x.shape[0]
+    X = torch.view_as_real(x.resolve_conj()).reshape(m, -1)
+    yr = cols_apply(C.re, X).view(-1, *x.shape[1:], 2)
+    yi = cols_apply(C.im, X).view(-1, *x.shape[1:], 2)
+    return torch.complex(yr[..., 0] - yi[..., 1], yr[..., 1] + yi[..., 0])
+
+
+def _spmv_any(A: WJD, x: torch.Tensor) -> torch.Tensor:
+    return wjd_spmv(A, x) if x.dim() == 1 else wjd_spmm(A, x)
+
+
+def cwjd_spmv(C: ComplexWJD, x: torch.Tensor) -> torch.Tensor:
+    """y = C @ x for a ComplexWJD and x of shape (m,) or (m, k): each
+    plane's blocked product over the real view of x (CUDA: the SpMM
+    kernel, two launches a product; CPU: its plain version). complex64
+    takes f32 (or bfloat16) planes, complex128 f64 planes."""
+    return _cwjd(C, x, _spmv_any, wjd_spmm)
+
+
+def cwjd_reference(C: ComplexWJD, x: torch.Tensor) -> torch.Tensor:
+    """The reference's formula from the planes' plain products (any
+    device): y = (Ar xr - Ai xi) + i (Ar xi + Ai xr)."""
+    return _cwjd(C, x, wjd_reference, wjd_reference)
 
 
 def wjd_reference(A: WJD, x: torch.Tensor) -> torch.Tensor:

@@ -8,14 +8,16 @@ Counterpart of rocalution_tpu/ops/spmv.py:
 * BCSR    -> one batched product over the dense blocks;
 * MCSR    -> diagonal multiply + CSR off-diagonal part;
 * DENSE   -> plain matrix product;
-* WJD     -> the hand-written Hopper kernels (ops/cuda/spmv_wjd.py).
+* Stencil -> shifted adds on the reshaped grid (matrix-free);
+* WJD     -> the hand-written Hopper kernels (ops/cuda/spmv_wjd.py);
+* ComplexWJD -> the same kernels on its real and imaginary planes.
 
 `x` may be (m,) or (m, k): every path serves blocked right-hand sides.
 
 `attach_wjd` builds a WJD plan for a host-built CSR (the analog of
 rocSPARSE csrmv analysis); solvers auto-attach through `as_operator` when
 the operand lives on CUDA (config.auto_wjd), and route ELL, HYB and BCSR
-operands through a WJD plan as well.
+operands through a WJD plan as well. A complex CSR gets a `ComplexWJD`.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from ..formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
                        MatrixBase)
 from ..formats.base import expand, get_host, set_host_cache
 from ..formats.dia import dia_apply
-from .cuda.spmv_wjd import wjd_spmm, wjd_spmv
+from ..formats.stencil import Stencil
+from ..formats.wjd import ComplexWJD
+from .cuda.spmv_wjd import cwjd_spmv, wjd_spmm, wjd_spmv
 
 
 @functools.singledispatch
@@ -41,11 +45,26 @@ def spmv(A, x):
     raise TypeError(f"spmv: unsupported operator type {type(A).__name__}")
 
 
+def spmv_add(A, x, y, alpha=1.0):
+    """y + alpha * A @ x (reference: Operator::ApplyAdd)."""
+    return y + alpha * spmv(A, x)
+
+
 @spmv.register(WJD)
 def _spmv_wjd(A: WJD, x):
     if x.dim() != 1:
         return wjd_spmm(A, x)
     return wjd_spmv(A, x)
+
+
+@spmv.register(ComplexWJD)
+def _spmv_cwjd(A: ComplexWJD, x):
+    return cwjd_spmv(A, x)
+
+
+@spmv.register(Stencil)
+def _spmv_stencil(A: Stencil, x):
+    return A.apply(x)
 
 
 def _segment_sum(prod, rows, nrow: int):
@@ -63,10 +82,17 @@ def _spmv_csr(A: CSR, x):
     return _segment_sum(prod, A.row_ids, A.shape[0])
 
 
-def _use_kernel(wjd: WJD, xdt) -> bool:
+def _use_kernel(wjd, xdt) -> bool:
     """Can this WJD plan serve a rhs of dtype `xdt`? The JAX package's
     `_use_pallas`: an f32 or bfloat16 x rides an f32 or bfloat16 plan, an
-    f64 x an f64 plan."""
+    f64 x an f64 plan; a complex64 (or f32) x rides a ComplexWJD of f32 or
+    bfloat16 planes, a complex128 (or f64) x one of f64 planes."""
+    if isinstance(wjd, ComplexWJD):
+        if xdt in (torch.complex64, torch.float32):
+            return wjd.re.dtype in (torch.float32, torch.bfloat16)
+        if xdt in (torch.complex128, torch.float64):
+            return wjd.re.dtype == torch.float64
+        return False
     if xdt in (torch.float32, torch.bfloat16):
         return wjd.dtype in (torch.float32, torch.bfloat16)
     if xdt == torch.float64:
@@ -148,7 +174,8 @@ def attach_wjd(A: CSR, **kwargs) -> CSR:
     go through the WJD kernels; kwargs go to the planner (``split_dia``,
     ``kernel_mode``, ``max_slots``, ``wlog``, ``values_dtype``: with
     ``values_dtype="bfloat16"`` the plan holds bfloat16 values and serves
-    an f32 x with f32 sums). A failed plan raises."""
+    an f32 x with f32 sums). A complex CSR gets a `ComplexWJD`. A failed
+    plan raises."""
     from ..formats.wjd import from_csr
 
     object.__setattr__(A, "_wjd_cache", from_csr(A, **kwargs))
@@ -160,7 +187,8 @@ def _wjd_eligible(A: CSR) -> bool:
     cache = getattr(A, "_host_cache", None)
     if not cache or "data" not in cache:
         return False
-    return np.dtype(cache["data"].dtype) in (np.float32, np.float64)
+    return np.dtype(cache["data"].dtype) in (np.float32, np.float64,
+                                             np.complex64, np.complex128)
 
 
 # formats whose plain apply is gather-bound: solvers route them through a

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats import CSR, DENSE, DIA, MCSR, to_csr
+from ..formats import CSR, DENSE, DIA, MCSR, Stencil, to_csr
 from ..formats.base import get_host, to_device
 
 
@@ -27,9 +27,12 @@ def jacobi(A):
 def extract_diagonal(A) -> torch.Tensor:
     """Diagonal of A on A's device (reference: LocalMatrix::
     ExtractDiagonal), from the device arrays: for operands without a host
-    cache, such as coarse operators rebuilt on the device."""
+    cache, such as coarse operators rebuilt on the device; a stencil's is
+    its zero offset's weight."""
     if isinstance(A, DENSE):
         return torch.diagonal(A.data)
+    if isinstance(A, Stencil):
+        return A.diagonal()
     if isinstance(A, MCSR):
         return A.diag
     if isinstance(A, DIA):

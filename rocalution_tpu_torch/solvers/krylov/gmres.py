@@ -6,7 +6,9 @@ restarted Arnoldi, right preconditioning, default basis size 30, classical
 Gram-Schmidt applied twice (CGS2) as two (m+1, n) products a step, Givens
 rotations, and the least-squares solve with the unprocessed columns of R
 left at the identity. FGMRES stores the preconditioned basis Z, so the
-preconditioner may change every step. Real dtypes.
+preconditioner may change every step. Real and complex dtypes: the
+projections conjugate the basis, and the rotations are the complex-safe
+ones of the reference.
 
 PyTorch has no device `while_loop`, so the inner steps run in chunks of
 `check_every`, with one host read of the stop flag per chunk. A step
@@ -31,18 +33,18 @@ from ._common import prepare, select_tree
 
 
 def _givens(a, b):
-    """Givens rotation of real (a, b): returns (c, s, r) so that
-    [c, s; -s, c] @ [a, b] = [r, 0]."""
-    t = torch.sqrt(a * a + b * b)
+    """Complex-safe Givens rotation: returns (c, s, r) with c real so that
+    [c, s; -conj(s), c] @ [a, b] = [r, 0]."""
     abs_a = torch.abs(a)
+    t = torch.sqrt(abs_a ** 2 + torch.abs(b) ** 2)
     safe_t = torch.where(t == 0, torch.ones_like(t), t)
     phase = torch.where(abs_a == 0, torch.ones_like(a),
-                        a / torch.where(abs_a == 0, torch.ones_like(a),
+                        a / torch.where(abs_a == 0, torch.ones_like(abs_a),
                                         abs_a))
     c = torch.where(t == 0, torch.ones_like(abs_a), abs_a / safe_t)
     s = torch.where(t == 0, torch.zeros_like(a),
                     torch.where(abs_a == 0, torch.ones_like(a),
-                                phase * b / safe_t))
+                                phase * torch.conj(b) / safe_t))
     return c, s, phase * t
 
 
@@ -51,8 +53,6 @@ def _gmres_core(A, b, x0, M, ctrl, check_every, kwargs, *, flexible: bool):
     op, b, x, precond, ctrl, red = prepare(A, b, x0, M, ctrl, kwargs)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if b.is_complex():
-        raise NotImplementedError("complex GMRES is not ported yet")
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
     ar = torch.arange(m + 1, device=dev)
@@ -69,9 +69,10 @@ def _gmres_core(A, b, x0, M, ctrl, check_every, kwargs, *, flexible: bool):
         w = op(zj)
         # CGS2 orthogonalization against V[0..j]
         mask = masks[j]                       # rows 0..j
-        h1 = (V @ w) * mask
+        # conj(V) w as conj(V conj(w)): no conjugated copy of V
+        h1 = (V @ w.conj()).conj() * mask
         w = w - h1 @ V
-        h2 = (V @ w) * mask
+        h2 = (V @ w.conj()).conj() * mask
         w = w - h2 @ V
         h = h1 + h2
         hj1 = red.norm(w)
@@ -83,7 +84,8 @@ def _gmres_core(A, b, x0, M, ctrl, check_every, kwargs, *, flexible: bool):
         c, s, rr = _givens(h[j], h[j + 1])
         qj, qj1 = Qt[j], Qt[j + 1]
         Qt[j], Qt[j + 1] = (torch.where(run, c * qj + s * qj1, qj),
-                            torch.where(run, c * qj1 - s * qj, qj1))
+                            torch.where(run, c * qj1 - torch.conj(s) * qj,
+                                        qj1))
         h[j] = rr
         h[j + 1] = 0.0
         R[:, j] = torch.where(run, h[:m], R[:, j])

@@ -41,6 +41,86 @@ def laplacian_2d(n: int, dtype=None, device=None) -> CSR:
     )
 
 
+def laplacian_2d_block(n: int, row_lo: int, row_hi: int, dtype=None):
+    """Rows [row_lo, row_hi) of the 5-point 2D Laplacian as a COO block
+    (local_rows, global_cols, values) of host arrays: each rank's patch
+    built without the global matrix (reference: clients/samples/
+    laplace_2d_weak_scaling.cpp)."""
+    dtype = numpy_dtype(dtype)
+    idx = np.arange(row_lo, row_hi, dtype=np.int64)
+    ix = idx % n
+    iy = idx // n
+    rows, cols, vals = [], [], []
+
+    def add(mask, r, c, v):
+        rows.append(r[mask] - row_lo)
+        cols.append(c[mask])
+        vals.append(np.full(mask.sum(), v, dtype=dtype))
+
+    add(np.ones(len(idx), dtype=bool), idx, idx, 4.0)
+    add(ix > 0, idx, idx - 1, -1.0)
+    add(ix < n - 1, idx, idx + 1, -1.0)
+    add(iy > 0, idx, idx - n, -1.0)
+    add(iy < n - 1, idx, idx + n, -1.0)
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals))
+
+
+def laplacian_3d_block(n: int, row_lo: int, row_hi: int, dtype=None):
+    """Rows [row_lo, row_hi) of the 7-point 3D Laplacian as a COO block
+    (local_rows, global_cols, values) of host arrays (reference: the
+    laplace_3d weak-scaling generator, clients/samples)."""
+    dtype = numpy_dtype(dtype)
+    idx = np.arange(row_lo, row_hi, dtype=np.int64)
+    ix = idx % n
+    iy = (idx // n) % n
+    iz = idx // (n * n)
+    rows, cols, vals = [], [], []
+
+    def add(mask, r, c, v):
+        rows.append(r[mask] - row_lo)
+        cols.append(c[mask])
+        vals.append(np.full(mask.sum(), v, dtype=dtype))
+
+    add(np.ones(len(idx), dtype=bool), idx, idx, 6.0)
+    add(ix > 0, idx, idx - 1, -1.0)
+    add(ix < n - 1, idx, idx + 1, -1.0)
+    add(iy > 0, idx, idx - n, -1.0)
+    add(iy < n - 1, idx, idx + n, -1.0)
+    add(iz > 0, idx, idx - n * n, -1.0)
+    add(iz < n - 1, idx, idx + n * n, -1.0)
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals))
+
+
+def anisotropic_laplacian_2d(n: int, epsilon: float = 0.1, dtype=None,
+                             device=None) -> CSR:
+    """Anisotropic 5-point Laplacian, -u_xx - eps*u_yy on an n x n grid:
+    the classic AMG stress problem (smooth error aligns with the strong
+    direction)."""
+    dtype = numpy_dtype(dtype)
+    N = n * n
+    idx = np.arange(N, dtype=np.int64)
+    ix = idx % n
+    iy = idx // n
+    rows, cols, vals = [], [], []
+
+    def add(mask, r, c, v):
+        rows.append(r[mask])
+        cols.append(c[mask])
+        vals.append(np.full(mask.sum(), v, dtype=dtype))
+
+    add(np.ones(N, dtype=bool), idx, idx, 2.0 + 2.0 * epsilon)
+    add(ix > 0, idx, idx - 1, -1.0)
+    add(ix < n - 1, idx, idx + 1, -1.0)
+    add(iy > 0, idx, idx - n, -epsilon)
+    add(iy < n - 1, idx, idx + n, -epsilon)
+    return CSR.from_coo(
+        np.concatenate(rows), np.concatenate(cols), np.concatenate(vals),
+        (N, N), device=device,
+    )
+
+
 def laplacian_3d(n: int, dtype=None, device=None) -> CSR:
     """7-point 3D Laplacian on an n^3 grid (Dirichlet)."""
     dtype = numpy_dtype(dtype)
@@ -121,6 +201,40 @@ def random_banded_spd(n: int, nnz_per_row: int = 7, bandwidth: int = 8192,
     c = np.concatenate([c, np.arange(n)])
     v = np.concatenate([v, (dom + 1.0).astype(dtype)])
     return CSR.from_coo(r, c, v, (n, n), device=device)
+
+
+def permuted_identity(n: int, seed: int = 0, dtype=None, device=None) -> CSR:
+    """Random permutation matrix (reference bench matrix_init
+    'permuted_identity', clients/benchmarks/
+    rocalution_enum_matrix_init.hpp:33-36)."""
+    dtype = numpy_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    return CSR.from_coo(np.arange(n), perm, np.ones(n, dtype=dtype), (n, n),
+                        device=device)
+
+
+def random_spd(n: int, density: float = 0.05, seed: int = 0, dtype=None,
+               device=None) -> CSR:
+    """Random diagonally dominant SPD matrix for solver tests."""
+    dtype = numpy_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    nnz = max(1, int(n * n * density / 2))
+    r = rng.integers(0, n, nnz)
+    c = rng.integers(0, n, nnz)
+    keep = r != c
+    r, c = r[keep], c[keep]
+    v = rng.standard_normal(len(r)).astype(dtype)
+    rows = np.concatenate([r, c])
+    cols = np.concatenate([c, r])
+    vals = np.concatenate([v, v])  # symmetric
+    # diagonal dominance
+    dom = np.zeros(n, dtype=dtype)
+    np.add.at(dom, rows, np.abs(vals))
+    rows = np.concatenate([rows, np.arange(n)])
+    cols = np.concatenate([cols, np.arange(n)])
+    vals = np.concatenate([vals, dom + 1.0])
+    return CSR.from_coo(rows, cols, vals, (n, n), device=device)
 
 
 def fem_2d_unstructured(npts: int, seed: int = 0, dtype=None,

@@ -37,6 +37,7 @@ from rocalution_tpu_torch.formats.wjd import csr_to_wjd_plan as torch_plan
 from rocalution_tpu_torch.formats.wjd import from_csr
 from rocalution_tpu_torch.interop import wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 BF16 = "bfloat16"
 GENERATORS = {

@@ -14,6 +14,7 @@ import torch
 import rocalution_tpu as jrt
 import rocalution_tpu_torch as rt
 from rocalution_tpu.ops.spmv import attach_wjd as jax_attach_wjd
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import rocalution_tpu_torch as rt
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

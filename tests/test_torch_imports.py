@@ -18,7 +18,10 @@ import sys
 import rocalution_tpu_torch
 from rocalution_tpu_torch import interop
 from rocalution_tpu_torch.formats import (bcsr, convert, coo, dense, ell, hyb,
-                                          mcsr)
+                                          mcsr, stencil, wjd_cache)
+from rocalution_tpu_torch.io import binary, mtx, rocsparseio
+from rocalution_tpu_torch.ops import blas1
+from rocalution_tpu_torch.utils import generators
 from rocalution_tpu_torch.ops.cuda import _build, spmv_wjd
 from rocalution_tpu_torch import native
 from rocalution_tpu_torch.ops import (extract, factorize, ordering, spgemm,
@@ -72,8 +75,47 @@ def test_public_surface():
                  "gmres", "fgmres", "mixed_precision_dc", "ilu", "ic",
                  "itilu0", "convection_diffusion_2d", "fem_2d_unstructured",
                  "cr", "fcg", "bicgstab", "bicgstabl", "idr", "qmrcgstab",
-                 "chebyshev", "gershgorin", "power_method"):
+                 "chebyshev", "gershgorin", "power_method",
+                 "Stencil", "laplace2d_stencil", "laplace3d_stencil",
+                 "spmv_add", "io", "blas1", "anisotropic_laplacian_2d",
+                 "ComplexWJD"):
         assert hasattr(rt, name), name
+
+
+def test_item_9_surface():
+    """The JAX package's names of ROADMAP item 9: IO (every reader and
+    writer but the global pair, which waits for the distributed layer),
+    BLAS-1's 27 functions, the generators, the stencil and the plan
+    cache."""
+    import rocalution_tpu_torch.formats.wjd_cache as cache
+    from rocalution_tpu_torch.ops import blas1
+    from rocalution_tpu_torch.utils import generators
+
+    for mod, names in (
+            (rt.io, ("read_csr", "read_mtx", "read_mtx_vector",
+                     "read_rocsparseio", "read_vector",
+                     "read_vector_rocsparseio", "write_csr", "write_mtx",
+                     "write_rocsparseio", "write_vector",
+                     "write_vector_rocsparseio")),
+            (blas1, ("dot", "dot_nonconj", "norm", "asum", "amax",
+                     "reduce_sum", "scale", "add_scale", "scale_add",
+                     "scale_add_scale", "scale_add2", "pointwise_mult",
+                     "power", "inclusive_sum", "exclusive_sum", "permute",
+                     "permute_backward", "get_index_values",
+                     "set_index_values", "add_index_values", "sigma_norm",
+                     "restriction", "prolongation", "set_random_uniform",
+                     "set_random_normal", "extract_coarse_mapping",
+                     "extract_coarse_boundary", "amax_value")),
+            (generators, ("anisotropic_laplacian_2d", "permuted_identity",
+                          "random_spd", "laplacian_2d_block",
+                          "laplacian_3d_block")),
+            (rt.formats, ("Stencil", "laplace2d_stencil",
+                          "laplace3d_stencil", "ComplexWJD")),
+            (cache, ("PLAN_VERSION", "cache_dir", "plan_key", "load_plan",
+                     "save_plan"))):
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
+    assert not hasattr(rt.io, "read_global_csr")
 
 
 def test_multigrid_surface():

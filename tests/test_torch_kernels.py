@@ -36,6 +36,13 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def plan_cache_off(monkeypatch):
+    """Every plan here is made in this process; nothing is written to the
+    on-disk plan cache."""
+    monkeypatch.setenv("ROCALUTION_TPU_TORCH_PLAN_CACHE", "0")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -855,3 +862,72 @@ def test_device_pmis_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_array_equal(
         aggregation_device.pmis_aggregate_jit(Sg, 1, cuda_device),
         aggregation_device.pmis_aggregate_jit(Sg, 1, "cpu"))
+
+
+def _complex_op(mode, cdt, device):
+    """S + 0.05j*T: S laplacian_3d(12) (roll planes) or
+    random_banded_spd(3000) (gather planes), T a seeded matrix on S's
+    pattern made symmetric."""
+    S = (rt.laplacian_3d(12, device="cpu") if mode == "roll" else
+         rt.random_banded_spd(3000, bandwidth=512, device="cpu"))
+    d, i, p = S.numpy_triplet()
+    M = sp.csr_matrix((np.random.default_rng(5).standard_normal(len(d)),
+                       i, p), shape=S.shape)
+    T = (M + M.T).tocsr()
+    T.sort_indices()
+    vals = (d + 0.05j * np.asarray(T[np.repeat(np.arange(S.shape[0]),
+                                                np.diff(p)), i]).ravel())
+    return rt.CSR.from_arrays(vals.astype(cdt), i, p, S.shape,
+                              device=device)
+
+
+@pytest.mark.parametrize("cdt", [np.complex64, np.complex128])
+@pytest.mark.parametrize("mode", ["roll", "gather"])
+def test_complex_apply_matches_plain_version(cuda_device, mode, cdt):
+    """A ComplexWJD on the card: each plane's SpMM kernel, two launches a
+    product, against the reference's formula over the planes' plain
+    products and against the plain complex CSR product (x and X)."""
+    A = _complex_op(mode, cdt, cuda_device)
+    C = from_csr(A)
+    assert isinstance(C, rt.ComplexWJD) and C.re.kernel_mode == mode
+    tol = TOL[C.re.dtype]
+    rng = np.random.default_rng(3)
+    n = A.shape[0]
+    for shape in ((n,), (n, 5)):
+        x = torch.from_numpy((rng.standard_normal(shape) + 1j
+                              * rng.standard_normal(shape)).astype(cdt)).to(
+            cuda_device)
+        key = f"spmm_{mode}_{kernels._DTYPE_TAG[C.re.dtype]}"
+        before = kernels.launches[key]
+        got = kernels.cwjd_spmv(C, x)
+        torch.cuda.synchronize()
+        assert kernels.launches[key] == before + 2
+        assert got.dtype == A.data.dtype
+        assert _rel(got, kernels.cwjd_reference(C, x)) <= tol
+        plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape)
+        assert _rel(got, rt.spmv(plain, x)) <= tol
+
+
+def test_complex_cg_goes_through_the_kernels(cuda_device):
+    """Fault 11: a complex CSR on the card is planned into a ComplexWJD at
+    setup, and a complex CG launches its planes' kernels, two a product,
+    every iteration; the same solve on the CPU takes as many iterations.
+    GMRES takes complex input too."""
+
+    def solve(device, solver=rt.cg):
+        A = _complex_op("roll", np.complex128, device)
+        b = torch.from_numpy(np.exp(1j * np.arange(A.shape[0]))).to(device)
+        before = kernels.launches["spmm_roll_f64"]
+        x, info = solver(A, b, M=rt.jacobi(A), rel_tol=1e-10, max_iter=500)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return A, info, kernels.launches["spmm_roll_f64"] - before
+
+    A, info, got = solve(cuda_device)
+    assert isinstance(A._wjd_cache, rt.ComplexWJD)
+    assert int(info.status) == 2
+    assert got >= 2 * (int(info.iterations) + 1)
+    _, info_cpu, _ = solve("cpu")
+    assert abs(int(info.iterations) - int(info_cpu.iterations)) <= 1
+    A, info, got = solve(cuda_device, rt.gmres)
+    assert int(info.status) == 2 and got >= 2 * int(info.iterations)

@@ -38,6 +38,17 @@ def _load_both(mp):
 
 
 @pytest.fixture(scope="module", autouse=True)
+def plan_cache_off():
+    """Both packages' on-disk WJD plan caches off: a parity test compares
+    plans made in its own process, and nothing is written under ~. Every
+    port test file that plans imports it from here (autouse there)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ROCALUTION_TPU_TORCH_PLAN_CACHE", "0")
+        mp.setenv("ROCALUTION_TPU_PLAN_CACHE", "0")
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
 def natives_loaded():
     with pytest.MonkeyPatch.context() as mp:
         _load_both(mp)

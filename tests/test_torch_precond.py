@@ -30,6 +30,7 @@ from rocalution_tpu.ops import ordering as jax_ord
 from rocalution_tpu_torch import precond as tp
 from rocalution_tpu_torch.ops import extract, factorize, ordering
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -22,6 +22,7 @@ from rocalution_tpu.ops import extract as jax_ext
 from rocalution_tpu_torch import precond as tp
 from rocalution_tpu_torch.ops import extract
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 from test_torch_precond import _close, on_the_cpu, ops  # noqa: F401
 
 

@@ -31,6 +31,7 @@ from rocalution_tpu_torch.solvers.multigrid import aggregation as torch_agg
 from rocalution_tpu_torch.solvers.multigrid import aggregation_device as dev
 from rocalution_tpu_torch.solvers.multigrid import rs
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

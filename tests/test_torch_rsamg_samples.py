@@ -17,6 +17,7 @@ import rocalution_tpu_torch as rt
 from rocalution_tpu.solvers import multigrid as jmg
 from rocalution_tpu_torch.solvers import multigrid as tmg
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 from test_torch_rsamg import on_the_cpu  # noqa: F401  (autouse)
 
 

@@ -28,6 +28,7 @@ from rocalution_tpu.formats.wjd import from_csr as jax_from_csr
 from rocalution_tpu.ops.spmv import attach_wjd as jax_attach_wjd
 from rocalution_tpu_torch.formats.wjd import from_csr
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 RTOL = {np.float64: 1e-13, np.float32: 2e-5}
 

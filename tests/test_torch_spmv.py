@@ -24,6 +24,7 @@ from rocalution_tpu_torch.formats.wjd import from_csr
 from rocalution_tpu_torch.interop import csr_from_numpy, wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import _build
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -39,6 +39,7 @@ from rocalution_tpu_torch.formats.wjd import (SLICE, _check_compact_reach,
                                               _plan_to_wjd, compact_slices,
                                               csr_to_wjd_plan, from_csr)
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
 

@@ -16,6 +16,7 @@ import rocalution_tpu_torch as rt
 from rocalution_tpu.formats.wjd import csr_to_wjd_plan as jax_plan
 from rocalution_tpu_torch.formats.wjd import csr_to_wjd_plan as torch_plan
 from rocalution_tpu_torch.formats.wjd import from_csr
+from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
