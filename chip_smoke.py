@@ -75,6 +75,19 @@ each went through its kernels:
        timed, complex CG, GMRES(30) and BiCGStab through the kernels and
        plain. P4: CG on laplace3d_stencil(100), matrix-free, beside the
        same CG on the assembled operator
+  Q    the distributed layer (rocalution_tpu_torch/parallel), its parts
+       on the one card. Q1: laplacian_3d(100) over 8 and 4 parts in both
+       halo modes: each part's interior kernel and the halo-exchange
+       SpMV against their plain versions and the serial product, one
+       launch a part an apply, CG + BlockJacobi(diagonal) at phase D's
+       count through the kernels and plain, timed in turns, and an f32
+       copy. Q2: the JAX dryrun's flagship, laplacian_3d_block(101) over
+       8 parts (1,030,301 rows, never assembled), distributed SA-AMG
+       setup with planned interiors and CG + V-cycle to 1e-5. Q3:
+       laplacian_2d_block(256), V- and K-cycle, then RS and pairwise on
+       16k rows against the serial hierarchy. Q4: BlockJacobi with local
+       SPAI, FSAI, ILU(0), ILUT at 1M rows. Q5: CG over 4 processes on
+       the card, one part each, over torch.distributed (gloo)
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -141,10 +154,12 @@ O_RS_PMIS_MAX_ITER = 100    # pmis/extpi: CG stalls on its inexact coarse
 O_ERR = 1e-6                # |x-1|/|1| bound of the CG rows (phase D's)
 O_STALL_TOL = 1e-6          # a row stopping at max_iter on both paths: its
                             # two final relative residuals, relative apart
-O_TIME_ITERS = 24           # phase O: iterations a timed solve (a multiple
-                            # of FACTOR_CHECK_EVERY and of the variable
-                            # preconditioner's 3 branches)
-O_TURNS = ("WJD", "plain", "plain", "WJD")  # phase O: timed solves in turns
+O_TIME_ITERS = 24           # phases O, P3, P4: iterations a timed solve (a
+                            # multiple of FACTOR_CHECK_EVERY and of the
+                            # variable preconditioner's 3 branches; at 12
+                            # a solve's fixed start-up costs showed in
+                            # ms/iter)
+TURNS = ("WJD", "plain", "plain", "WJD")  # phases K-Q: timed solves in turns
 P_LAP_N = 100               # phase P: laplacian_3d(100) f64, 1,000,000 rows
 P_RAND_N = 1 << 20          # and random_banded_spd(1<<20) f64, 1,048,576
 P_CACHE_N = 128             # P2: laplacian_3d(128), 2,097,152 rows
@@ -159,12 +174,22 @@ P_MAX_ITER = {"cg": 2000, "gmres": 600, "bicgstab": 1000}
 # 1e-15 in f64; a few units of the last place in f32)
 P_NUDGE = {torch.complex128: 1e-15, torch.complex64: 1e-6}
 P_HIST_TOL = 1e-10          # P4: the stencil CG's history against the CSR's
+Q_LAP_N = 100               # Q1, Q4, Q5: laplacian_3d(100), 1,000,000 rows
+Q_PARTS = (8, 4)            # Q1: parts (Q2-Q4: the first)
+Q_APPLY_TOL = 1e-14         # Q1: shard_spmv against plain and serial
+Q_AMG_N = 101               # Q2: laplacian_3d_block(101), 1,030,301 rows
+Q_2D_N = 256                # Q3: laplacian_2d_block(256), 65,536 rows
+Q3_N = 128                  # Q3: RS and pairwise on 16,384 rows
+Q_CHECK_N = 24              # Q4: the card-against-CPU BlockJacobi apply
+Q_PROCS = 4                 # Q5: processes (one part each) on the card
+Q5_TIMEOUT_S = 300
+Q5_WORKER = [sys.executable, os.path.abspath(__file__), "--q5-worker"]
 PLAN_CACHE_ENV = "ROCALUTION_TPU_TORCH_PLAN_CACHE"
 FIXTURES = "tests/fixtures/"
-REPS = 20
+REPS = 10
 SPIN_CYCLES = 20_000_000    # ~10 ms at ~2 GHz: outlasts one call's launches
-PROF_WALL_ITERS = 256       # phase G: CG iterations timed on the host clock
-PROF_ITERS = 64             # phase G: CG iterations under torch.profiler
+PROF_WALL_ITERS = 128       # phases G, Q1: CG iterations timed on the host
+PROF_ITERS = 32             # clock, and under torch.profiler
 WIN_LAP64_N = 128           # laplacian_3d(128) f64: 2,097,152 rows
 WIN_LAP32_N = 180           # laplacian_3d(180) f32: 5,832,000 rows
 WIN_RAND_N = 1 << 22        # random_banded_spd(1<<22) f32: 4,194,304 rows
@@ -175,8 +200,8 @@ AMG_3D_N = 128              # phase K: laplacian_3d(128), 2,097,152 rows
 AMG_3D_LEVELS = 5           # BENCH_r05.json amg_setup_2m_levels
 AMG_CHECK_EVERY = 4         # phase K: CG steps between host reads of the
                             # stop flag; each masked step costs a V-cycle
-AMG_PROF_CYCLES = (20, 5)   # phase K: V-cycles timed unprofiled, profiled
-AMG_PROF_ITERS = (8, 4)     # phase K: CG iterations timed the same ways
+AMG_PROF_CYCLES = (10, 3)   # phase K: V-cycles timed unprofiled, profiled
+AMG_PROF_ITERS = (4, 2)     # phase K: CG iterations timed the same ways
 HOST_TOP = 8                # host_profile: rows shown of each table
 L1_IC_N = 256               # phase L1: bench.py's rows at their own sizes:
 L1_CD_N = 192               # laplacian_2d(256), convection_diffusion_2d(192)
@@ -187,7 +212,7 @@ L2_CD_STATUS = 4            # its GMRES(30) stops at 600 steps short of 1e-6
 M1_N = 128                  # phase M1: bench.py's mpdc row, laplacian_2d(128)
 M2_N = 100                  # phase M2: laplacian_3d(100) f64
 FACTOR_CHECK_EVERY = 8      # phases L, M: solver steps between host reads
-FACTOR_PROF = (8, 4)        # phases L, M: iterations timed, profiled (a
+FACTOR_PROF = (4, 2)        # phases L, M: iterations timed, profiled (a
                             # solver call of k iterations also applies the
                             # preconditioner once at its start: the numbers
                             # a step read (k+1)/k of an iteration's)
@@ -357,42 +382,24 @@ def bounds_text(b):
             f"product), own bytes {b['own_bytes_ms'] * 1e3:.1f} us")
 
 
-def with_planes(rt, A, attach_kw, ordered=True):
+def with_planes(rt, A, attach_kw):
     """A gather-mode plan on the card is served from its compact form and
     carries no slot planes. Plan A once more on the host and return the
     attached plan with the padded planes beside its compact form, so that
-    the padded slot product can be computed on the card; with `ordered`,
-    the same plan with the rows of each tile ordered by length before
-    compacting (else None), for timing only (its offsets belong to the
-    rows' old places, so its product is not A's): what the padding that is
-    left costs; the seconds the plan took (a read of the plan cache, where
-    the attach wrote it) and the seconds compacting took."""
+    the padded slot product can be computed on the card; the seconds the
+    plan took (a read of the plan cache, where the attach wrote it) and
+    the seconds compacting took."""
     from rocalution_tpu_torch.formats.wjd import (compact_slices,
                                                   csr_to_wjd_plan)
-
-    def on_card(fields):
-        return {k: torch.from_numpy(v).cuda() if isinstance(v, np.ndarray)
-                else v for k, v in fields.items()}
 
     t0 = time.perf_counter()
     plan = csr_to_wjd_plan(*A.numpy_triplet(), A.shape, **attach_kw)
     t1 = time.perf_counter()
     compact_slices(plan)
     t2 = time.perf_counter()
-    W = A._wjd_cache
-    W_pad = dataclasses.replace(W, **on_card(
-        {"data": plan["data"], "uloc": plan["uloc"]}))
-    if not ordered:
-        return W_pad, None, t1 - t0, t2 - t1
-    Tp, K = plan["brow"].shape
-    data = plan["data"].reshape(Tp, K, 1024)
-    order = np.argsort(-(data != 0).sum(axis=1), axis=1,
-                       kind="stable")[:, None, :]
-    W_ordered = dataclasses.replace(W, **on_card(compact_slices(dict(
-        plan, data=np.take_along_axis(data, order, 2),
-        uloc=np.take_along_axis(plan["uloc"].reshape(Tp, K, 1024), order,
-                                2)))))
-    return W_pad, W_ordered, t1 - t0, t2 - t1
+    W_pad = dataclasses.replace(A._wjd_cache, **{
+        k: torch.from_numpy(plan[k]).cuda() for k in ("data", "uloc")})
+    return W_pad, t1 - t0, t2 - t1
 
 
 def library_ms(A, x):
@@ -470,24 +477,19 @@ def phase_c(rt, kernels, ops, plans):
         extra = ""
         if gather:
             with plan_cache(plans):
-                W_pad, W_ordered, plan_s, compact_s = with_planes(rt, A,
-                                                                  attach_kw)
+                W_pad, plan_s, compact_s = with_planes(rt, A, attach_kw)
             _, rel_p = rel_err(y, kernels.slots_plain(W_pad, xp),
                                f"{key} vs padded slot product", tol)
             rel_err(kernels.wjd_spmv(W, x), kernels.wjd_reference(W_pad, x),
                     f"{key} full op vs padded", tol)
-            padded[key] = (W_pad, W_ordered)
-            o_ms = median_ms(lambda: kernels.slots_kernel(W_ordered, xp))
+            padded[key] = W_pad
             extra = (f" (when done again: the plan read back from the plan "
                      f"cache in {plan_s:.1f} s, {compact_s:.1f} s compacting)"
                      f" | compact form "
                      f"{W.cval.numel()} elements, padding "
                      f"{W.compact_padding_ratio:.3f}x, "
                      f"{W.coff.element_size()}-byte offsets | vs padded slot "
-                     f"product {rel_p:.3e} | timing only, rows of a tile "
-                     f"ordered by length: padding "
-                     f"{W_ordered.compact_padding_ratio:.3f}x, kernel "
-                     f"{o_ms * 1e3:.1f} us")
+                     f"product {rel_p:.3e}")
         del y
         k_ms = median_ms(lambda: kernels.slots_kernel(W, xp))
         p_ms = median_ms(lambda: plain(W, xp))
@@ -681,13 +683,9 @@ def phase_h(rt, kernels, totals, ops, single, padded):
         lib_ms = library_ms(A, X[16])
         n, m = A.shape
         if gather:
-            W_pad, W_ordered = padded[key]
-            _, rel_p = rel_err(y_k, kernels.slots_plain_mrhs(W_pad, xp),
+            _, rel_p = rel_err(y_k, kernels.slots_plain_mrhs(padded[key], xp),
                                f"spmm_{key} vs padded slot product", tol)
-            o_ms = median_ms(lambda: kernels.slots_kernel_mrhs(W_ordered, xp))
-            layouts = (f"vs padded slot product {rel_p:.3e}; timing only, "
-                       f"rows of a tile ordered by length: {o_ms * 1e3:.1f} "
-                       "us")
+            layouts = f"vs padded slot product {rel_p:.3e}"
         else:
             # a column is the single-RHS roll kernel's sum, bit for bit
             for j in range(16):
@@ -710,7 +708,7 @@ def phase_h(rt, kernels, totals, ops, single, padded):
             rel_err(Y[k], kernels.wjd_reference(W, X[k]), f"H {key} k={k}",
                     tol)
             if gather:
-                rel_err(Y[k], kernels.wjd_reference(W_pad, X[k]),
+                rel_err(Y[k], kernels.wjd_reference(padded[key], X[k]),
                         f"H {key} k={k} vs padded slot product", tol)
         singles = torch.stack([kernels.wjd_spmv(W, X[16][:, j].contiguous())
                                for j in range(16)], dim=1)
@@ -805,8 +803,7 @@ def phase_i(rt, kernels, totals, tag, make, key, attach_kw, rel_tol,
             raise RuntimeError(f"I {tag}: the plan keeps its slot planes on "
                                "the card")
         with plan_cache(plans):
-            W_pad, _, plan_s, compact_s = with_planes(rt, A, attach_kw,
-                                                      ordered=False)
+            W_pad, plan_s, compact_s = with_planes(rt, A, attach_kw)
         _, rel_p = rel_err(y_k, kernels.slots_plain(W_pad, xp),
                            f"{key} vs padded slot product", tol)
         del W_pad
@@ -1350,9 +1347,9 @@ def factor_row(rt, kernels, totals, phase, tag, spec):
     RES_BOUND); tol = the iterations the two paths may differ by (None: a
     row whose count rounding alone moves, held to the same status only);
     want = the iterations the row must take, or None; prof = the
-    iterations timed and profiled (default FACTOR_PROF); turns = the
-    paths timed in turns after the counted solves (default WJD, plain,
-    plain, WJD). Before the solve,
+    iterations timed and profiled (default FACTOR_PROF); time_iters = the
+    iterations of each timed solve (default: the whole solve); the paths
+    are timed in turns (TURNS) after the counted solves. Before the solve,
     the kernel apply of the operator and of each factor's off-diagonal
     part is held against its plain versions (`hold_row_kernels`). Returns
     the iterations."""
@@ -1400,11 +1397,13 @@ def factor_row(rt, kernels, totals, phase, tag, spec):
                            f"{status}, plain {it_p} status {status_p}")
     paths = {"WJD": (Op, M, contextlib.nullcontext()),
              "plain": (Op_p, M_p, Plain(rt))}
+    time_kw = kw if spec.get("time_iters") is None else dict(
+        kw, rel_tol=1e-30, max_iter=spec["time_iters"])
     ms = []
-    for path in spec.get("turns", ("WJD", "plain", "plain", "WJD")):
+    for path in TURNS:
         Op_, M_, ctx = paths[path]
         with ctx:
-            (_, inf_), s = timed(lambda: solver(Op_, b, M=M_, **kw))
+            (_, inf_), s = timed(lambda: solver(Op_, b, M=M_, **time_kw))
         ms.append(f"{path} {s / int(inf_.iterations) * 1e3:.3f}")
     served = (f"operator: {served_by(Op)} | factors: "
               f"{factor_served(M, used)}")
@@ -1418,8 +1417,10 @@ def factor_row(rt, kernels, totals, phase, tag, spec):
         f"iters, {err_name} {err:.3e}, first solve {first_s:.2f} s | plain: "
         f"status {status_p}, {it_p} iters, {err_p:.3e}"
         + (" (a count rounding moves: not held to the WJD one)"
-           if spec["tol"] is None else "") + " | ms/iter in turns "
-        + ", ".join(ms))
+           if spec["tol"] is None else "")
+        + " | ms/iter in turns"
+        + (f" over {spec['time_iters']} iterations"
+           if spec.get("time_iters") else "") + " " + ", ".join(ms))
     say(phase, f"{tag} served by: {served}")
     say(phase, f"{tag}: each kernel apply vs the plan's plain product / the "
         f"plain CSR apply, max|dy|/max|y| (tol {TOL[A.dtype]:g}): {held}")
@@ -1510,10 +1511,11 @@ def phase_l(rt, kernels, totals):
              # this operator with ILU(0) (tests/test_torch_ilu.py)
              kw=dict(rel_tol=1e-4, max_iter=200), status=2, err=2e-4,
              tol=None,
-             # an iteration is ~8,600 device ops: profile two; and time
-             # one solve a path in turns (~10 s each), so that the whole
-             # run keeps its time with phase N added
-             prof=(4, 2), turns=("WJD", "plain"))),
+             # an iteration is ~8,600 device ops (~150 ms): profile two;
+             # and time 12 iterations a solve in turns, not whole solves
+             # (~10 s each), so that the whole run keeps its time with
+             # phases N and Q added
+             prof=(2, 1), time_iters=12)),
         ("L2", f"laplacian_3d({L2_LAP_N}) f64, ic jacobi 8 sweeps, CG, "
          "rel_tol 1e-8", dict(
              make=lambda: rt.laplacian_3d(L2_LAP_N), rhs=ones_rhs,
@@ -1746,14 +1748,18 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
                   "library_ms": lib_ms, **b}}
 
 
-def phase_n1(rt, kernels, totals, direct, windowed_ops):
+def phase_n1(rt, kernels, totals, direct, windowed_ops, plans):
     """The six bf16 kernels on bf16 plans of f32 operators that earlier
     phases built and planned in f32: `direct` {tag: (A, attach_kw)} of C
     and H (one roll, one gather), `windowed_ops` {tag: (A, attach_kw)} of
-    I. Returns the kernel rows and the bf16 copies of `direct`."""
+    I. The bf16 plans go through the plan cache at `plans`, where C and I
+    left the f32 plans: each is the f32 plan with its values rounded
+    (formats/wjd.py), so the layout is not planned again. Returns the
+    kernel rows and the bf16 copies of `direct`."""
     rows, copies = {}, {}
     for tag, (A, kw) in direct.items():
-        B, plan_s = bf16_copy(rt, A, kw)
+        with plan_cache(plans):
+            B, plan_s = bf16_copy(rt, A, kw)
         mode = B._wjd_cache.kernel_mode
         rows.update(bf16_row(rt, kernels, totals, tag, A, B, f"{mode}_bf16",
                              plan_s))
@@ -1761,7 +1767,8 @@ def phase_n1(rt, kernels, totals, direct, windowed_ops):
                                   f"spmm_{mode}_bf16"))
         copies[tag] = B
     for tag, (A, kw) in windowed_ops.items():
-        B, plan_s = bf16_copy(rt, A, kw)
+        with plan_cache(plans):
+            B, plan_s = bf16_copy(rt, A, kw)
         rows.update(bf16_row(rt, kernels, totals, tag, A, B,
                              f"win_{B._wjd_cache.kernel_mode}_bf16", plan_s))
         del B
@@ -2126,7 +2133,7 @@ def o_row(rt, kernels, totals, phase, tag, A, b, build, small, *, solver,
        relative residuals within O_STALL_TOL of each other;
     5. the launches at least what the iterations apply (`o_launches`);
     6. ms/iter over O_TIME_ITERS iterations a solve, the paths in turns
-       (O_TURNS), the solves of 4 being their warm-up.
+       (TURNS), the solves of 4 being their warm-up.
     Returns M."""
     from rocalution_tpu_torch.ops.spmv import as_operator
 
@@ -2187,7 +2194,7 @@ def o_row(rt, kernels, totals, phase, tag, A, b, build, small, *, solver,
              "plain": (A_p, M_p, Plain(rt))}
     time_kw = dict(solver_kw, rel_tol=1e-30, max_iter=O_TIME_ITERS)
     ms = []
-    for path in O_TURNS:
+    for path in TURNS:
         A_, M_, ctx = paths[path]
         with ctx:
             (_, inf_), s = timed(lambda: solver(A_, b, M=M_, **time_kw))
@@ -2589,7 +2596,7 @@ def p3_solve(rt, kernels, totals, tag, name, A, A_p, b):
     plain counts at b and b(1 +- P_NUDGE) spread by more than 2, as in
     phase N2, the row is held to its status), |x-1|/|1| (CG) or the true
     residual (`res_bound`) under its bound, two launches a product;
-    ms/iter in turns (O_TURNS) over O_TIME_ITERS iterations."""
+    ms/iter in turns (TURNS) over O_TIME_ITERS iterations."""
     fn = getattr(rt, name)
     M, M_p = rt.jacobi(A), rt.jacobi(A_p)
     kw = dict(rel_tol=P_REL_TOL[A.dtype], max_iter=P_MAX_ITER[name],
@@ -2637,7 +2644,7 @@ def p3_solve(rt, kernels, totals, tag, name, A, A_p, b):
              "plain": (A_p, M_p, Plain(rt))}
     time_kw = dict(kw, rel_tol=1e-30, max_iter=O_TIME_ITERS)
     ms = []
-    for path in O_TURNS:
+    for path in TURNS:
         A_, M_, ctx = paths[path]
         with ctx:
             (_, inf_), t = timed(lambda: fn(A_, b, M=M_, **time_kw))
@@ -2773,6 +2780,512 @@ def phase_p(rt, kernels, totals, want, plans):
     say("P4", f"phase P4: {time.perf_counter() - t0:.0f} s")
 
 
+def q_plain(Ag):
+    """The same distributed operator without its interior plans (the
+    arrays shared): the plain segment-sum interior apply."""
+    return dataclasses.replace(Ag, int_wjd=None)
+
+
+def q_apply(tpar, Ag, x):
+    """Global y = A x through `shard_spmv`, all parts on the card."""
+    nloc = Ag.n_local_col or Ag.n_local
+    xp = tpar.distribute_vector(x, Ag.nparts, nloc)
+    return tpar.gather_vector(
+        tpar.shard_spmv(Ag, xp, tpar.make_comm(Ag.nparts)), Ag.n_global)
+
+
+def q_hold_interiors(kernels, tpar, phase, tag, Ag):
+    """Each part's interior kernel against its plain version, and the
+    whole apply through the kernels against the plain interior path, on
+    one x, at TOL; and the launches of that apply, by counter, which must
+    be one a part (the interior kernel runs once per part). Launches not
+    counted as the main path's. Returns the worst agreements and the
+    launches an apply as text, and the launches an apply."""
+    W = Ag.int_wjd
+    if W is None:
+        raise RuntimeError(f"{phase} {tag}: the interiors carry no plan")
+    worst = 0.0
+    for q, Wq in enumerate(W.parts):
+        x = torch.from_numpy(np.random.default_rng(q).standard_normal(
+            Wq.shape[1])).to(device=Wq.device, dtype=Wq.x_dtype)
+        _, rel = rel_err(kernels.wjd_spmv(Wq, x),
+                         kernels.wjd_reference(Wq, x),
+                         f"{phase} {tag} part {q}", TOL[Wq.dtype])
+        worst = max(worst, rel)
+    x = torch.from_numpy(np.random.default_rng(99).standard_normal(
+        Ag.shape[1])).to(device=Ag.device, dtype=Ag.dtype)
+    before = dict(kernels.launches)
+    y = q_apply(tpar, Ag, x)
+    per_apply = {k: n - before[k] for k, n in kernels.launches.items()
+                 if n != before[k]}
+    want = {}
+    for Wq in W.parts:
+        want[plan_key(Wq)] = want.get(plan_key(Wq), 0) + 1
+    if per_apply != want:
+        raise RuntimeError(f"{phase} {tag}: launches of one apply "
+                           f"{per_apply}, want {want}")
+    _, rel_all = rel_err(y, q_apply(tpar, q_plain(Ag), x),
+                         f"{phase} {tag} apply vs plain", TOL[Ag.dtype])
+    return (f"{W.nparts} parts {W.kernel_mode} "
+            f"({KERNELS[plan_key(W.parts[0])][0]}): parts {worst:.1e}, "
+            f"apply vs plain {rel_all:.1e}, launches an apply "
+            f"{per_apply}"), per_apply
+
+
+def q_solve(tpar, solver, Ag, b, M, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = tpar.dist_solve(solver, Ag, b, M=M, **kw)
+    torch.cuda.synchronize()
+    return x, info, time.perf_counter() - t0
+
+
+def q_turns(tpar, solver, paths, b, **kw):
+    """ms/iter of each path ({name: (Ag, M)}) in turns (TURNS), after one
+    warm-up solve each; returns {name: [ms/iter, ...]} and the last solve
+    of each path."""
+    last = {}
+    for name, (Ag, M) in paths.items():
+        last[name] = q_solve(tpar, solver, Ag, b, M, **kw)
+    ms = {name: [] for name in paths}
+    for name in TURNS:
+        Ag, M = paths[name]
+        x, info, s = q_solve(tpar, solver, Ag, b, M, **kw)
+        ms[name].append(s / max(int(info.iterations), 1) * 1e3)
+        last[name] = (x, info, s)
+    return ms, last
+
+
+def turns_text(ms):
+    return ", ".join(f"{k} " + "/".join(f"{v:.3f}" for v in vals)
+                     for k, vals in ms.items())
+
+
+def phase_q1(rt, tpar, kernels, totals, want):
+    """CG + BlockJacobi(diagonal) on laplacian_3d(Q_LAP_N) over 8 and 4
+    parts on the card, in both halo modes, through roll_f64 (one launch a
+    part an apply) and plain; then an f32 copy through roll_f32."""
+    A = rt.laplacian_3d(Q_LAP_N)
+    b = rhs_of_ones(A)
+    x = random_x(rt, A, torch.float64)
+    y_serial = rt.spmv(A, x)                   # A has no plan: plain CSR
+    want_status, want_it = want
+    cg_kw = dict(rel_tol=1e-8, max_iter=2000)
+    counts = {}
+    for parts in Q_PARTS:
+        for shifts, mode in ((6, "ppermute"), (0, "allgather")):
+            tag = f"{parts} parts {mode}"
+            t0 = time.perf_counter()
+            Ag = tpar.distribute_csr(A, parts, max_neighbor_shifts=shifts)
+            setup_s = time.perf_counter() - t0
+            if Ag.mode != mode:
+                raise RuntimeError(f"Q1 {tag}: halo mode {Ag.mode}")
+            if Ag.int_wjd.kernel_mode != "roll":
+                raise RuntimeError(f"Q1 {tag}: plan chose "
+                                   f"{Ag.int_wjd.kernel_mode} mode")
+            held, _ = q_hold_interiors(kernels, tpar, "Q1", tag, Ag)
+            y = q_apply(tpar, Ag, x)
+            _, rel_s = rel_err(y, y_serial, f"Q1 {tag} vs serial rt.spmv",
+                               Q_APPLY_TOL)
+            _, rel_p = rel_err(y, q_apply(tpar, q_plain(Ag), x),
+                               f"Q1 {tag} vs plain", Q_APPLY_TOL)
+            M = tpar.block_jacobi_diag(Ag)
+            paths = {"WJD": (Ag, M), "plain": (q_plain(Ag), M)}
+            with Counted(kernels, totals) as c:
+                ms, last = q_turns(tpar, rt.cg, paths, b, **cg_kw)
+            its = {}
+            for name, (xs, info, _) in last.items():
+                it, err = check_solve(f"Q1 {tag} {name}", xs, info,
+                                      want_status, 1e-6)
+                if abs(it - want_it) > 1:
+                    raise RuntimeError(f"Q1 {tag} {name}: {it} iterations, "
+                                       f"serial CG (phase D) {want_it}")
+                its[name] = it
+            solves = len(paths) + len(TURNS)
+            n_l = c.got["roll_f64"]
+            if n_l < (its["WJD"] + 1) * parts * (solves // 2):
+                raise RuntimeError(f"Q1 {tag}: {n_l} roll_f64 launches")
+            counts[(parts, mode)] = its["WJD"]
+            say("Q1", f"laplacian_3d({Q_LAP_N}) f64 {tag} (shifts "
+                f"{Ag.shifts}): distribute_csr {setup_s:.1f} s | {held} | "
+                f"apply vs serial rt.spmv {rel_s:.1e}, vs plain {rel_p:.1e}"
+                f" (tol {Q_APPLY_TOL:g}) | CG + block_jacobi_diag: WJD {its['WJD']} iters, "
+                f"plain {its['plain']} (serial phase D {want_it}), "
+                f"{n_l} roll_f64 launches in {solves} solves | ms/iter in "
+                f"turns: {turns_text(ms)}")
+            if (parts, mode) == (Q_PARTS[0], "ppermute"):
+                q1_profile(rt, tpar, Ag, M, b)
+            del Ag, M, paths, last
+    # the f32 copy through roll_f32
+    d, i, p = A.numpy_triplet()
+    A32 = rt.CSR.from_arrays(d.astype(np.float32), i, p, A.shape)
+    b32 = b.float()
+    Ag = tpar.distribute_csr(A32, Q_PARTS[0])
+    held, _ = q_hold_interiors(kernels, tpar, "Q1", "f32", Ag)
+    M = tpar.block_jacobi_diag(Ag)
+    kw32 = dict(rel_tol=1e-5, max_iter=2000)
+    with Counted(kernels, totals) as c:
+        ms, last = q_turns(tpar, rt.cg,
+                           {"WJD": (Ag, M), "plain": (q_plain(Ag), M)}, b32,
+                           **kw32)
+    (xw, iw, _), (xp_, ip, _) = last["WJD"], last["plain"]
+    it_w, err_w = check_solve("Q1 f32 WJD", xw, iw, int(ip.status), 1e-3)
+    it_p, _ = check_solve("Q1 f32 plain", xp_, ip, int(ip.status), 1e-3)
+    if abs(it_w - it_p) > 1:
+        raise RuntimeError(f"Q1 f32: WJD {it_w} vs plain {it_p} iterations")
+    if not c.got["roll_f32"]:
+        raise RuntimeError("Q1 f32: no roll_f32 launch")
+    say("Q1", f"laplacian_3d({Q_LAP_N}) f32 copy, {Q_PARTS[0]} parts "
+        f"{Ag.mode}: {held} | CG rel_tol 1e-5: WJD {it_w} iters (status "
+        f"{int(iw.status)}, |x-1|/|1|={err_w:.1e}), plain {it_p}, "
+        f"{c.got['roll_f32']} roll_f32 launches | ms/iter in turns: "
+        f"{turns_text(ms)}")
+    return counts
+
+
+def q1_profile(rt, tpar, Ag, M, b):
+    """Where one distributed CG iteration's time goes (`device_profile`):
+    rel_tol 0, so a solve of k iterations is k steps."""
+
+    def run(k):
+        tpar.dist_solve(rt.cg, Ag, b, M=M, rel_tol=0.0, max_iter=k)
+
+    say("Q1", f"profile of one CG iteration, {Ag.nparts} parts {Ag.mode}: "
+        f"{device_profile(run, PROF_WALL_ITERS, PROF_ITERS)}")
+
+
+def q_blocks(rt, gen, n, nparts):
+    """Per-part row blocks of a generator (never assembled globally), the
+    offsets and b = A 1 from the blocks alone."""
+    from rocalution_tpu_torch.parallel.amg_setup import _offsets
+
+    N = n ** (3 if gen == "3d" else 2)
+    make = (rt.utils.generators.laplacian_3d_block if gen == "3d"
+            else rt.utils.generators.laplacian_2d_block)
+    offs = _offsets(nparts, N)
+    blocks = [make(n, int(offs[q]), int(offs[q + 1])) for q in range(nparts)]
+    b = np.zeros(N)
+    for q, (r, _, d) in enumerate(blocks):
+        np.add.at(b, r + int(offs[q]), d)
+    return blocks, N, b
+
+
+def q_levels(dl):
+    return " / ".join(f"{G.shape[0]} {G.mode}" for G in dl.As)
+
+
+def q_amg_solve(tpar, solver, dl, b, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = tpar.dist_amg_solve_sharded(solver, dl, b, **kw)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    err = float(np.linalg.norm(host64(x) - 1.0) / np.sqrt(x.shape[0]))
+    return x, info, s, err
+
+
+def q_hold_levels(kernels, tpar, phase, tag, dl):
+    """`q_hold_interiors` on every level operator of dl, each of which
+    must carry a plan. Returns the text and each level's launches an
+    apply."""
+    texts, levels = [], []
+    for l, G in enumerate(dl.As):
+        text, per_apply = q_hold_interiors(kernels, tpar, phase,
+                                           f"{tag} L{l}", G)
+        texts.append(f"L{l} {text}")
+        levels.append(per_apply)
+    return "; ".join(texts), levels
+
+
+def q_check_launches(phase, tag, got, levels, its):
+    """Raise where a solve of `its` iterations launched fewer kernels
+    than its levels need: each level applies its operator at least once
+    an iteration, and an apply launches `per_apply` ({counter: n} of each
+    of `levels`, from `q_hold_interiors`)."""
+    least = {}
+    for per_apply in levels:
+        for k, n in per_apply.items():
+            least[k] = least.get(k, 0) + n * its
+    short = {k: (got.get(k, 0), n) for k, n in least.items()
+             if got.get(k, 0) < n}
+    if short:
+        raise RuntimeError(f"{phase} {tag}: launches (got, least) {short}")
+
+
+def phase_q2(rt, tpar, kernels, totals):
+    """The dryrun's flagship at full size: laplacian_3d_block(Q_AMG_N)
+    over 8 parts, distributed SA-AMG setup with planned interiors, CG
+    rel_tol 1e-5 with the V-cycle."""
+    t0 = time.perf_counter()
+    blocks, N, b = q_blocks(rt, "3d", Q_AMG_N, Q_PARTS[0])
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dl = tpar.distributed_amg_setup(blocks, (N, N), coarse_size=300)
+    setup_s = time.perf_counter() - t0
+    del blocks
+    held, levels = q_hold_levels(kernels, tpar, "Q2", "level", dl)
+    with Counted(kernels, totals) as c:
+        x, info, s, err = q_amg_solve(tpar, rt.cg, dl, b, rel_tol=1e-5,
+                                      max_iter=30)
+    status, it = int(info.status), int(info.iterations)
+    if status not in (1, 2) or not err < 1e-4:
+        raise RuntimeError(f"Q2: status {status}, rms {err:.3e}")
+    launched = {k: n for k, n in c.got.items() if n}
+    q_check_launches("Q2", "CG + V-cycle", launched, levels, it)
+    say("Q2", f"laplacian_3d_block({Q_AMG_N}) f64, {N} rows over "
+        f"{Q_PARTS[0]} parts: blocks {gen_s:.1f} s, distributed_amg_setup "
+        f"(coarse_size 300, interiors planned) {setup_s:.1f} s, "
+        f"{len(dl.As)} levels: {q_levels(dl)} | interior kernels vs plain: "
+        f"{held} | CG + V-cycle rel_tol 1e-5: status {status}, {it} iters "
+        f"over {len(dl.As)} levels (reference: 8 over 5), rms "
+        f"{err:.2e}, {s:.2f} s, {s / max(it, 1) * 1e3:.1f} ms/iter | "
+        f"launches {launched}")
+    return it
+
+
+def phase_q3(rt, tpar, kernels, totals):
+    """laplacian_2d_block(Q_2D_N) over 8 parts: SA V- and K-cycle; then RS
+    and pairwise on laplacian_2d(Q3_N) against the serial hierarchy."""
+    from rocalution_tpu_torch.solvers.multigrid import (amg_hierarchy,
+                                                        cycle_closure)
+
+    blocks, N, b = q_blocks(rt, "2d", Q_2D_N, Q_PARTS[0])
+    t0 = time.perf_counter()
+    dl = tpar.distributed_amg_setup(blocks, (N, N), coarse_size=200)
+    setup_s = time.perf_counter() - t0
+    if dl.As[0].mode != "ppermute":
+        raise RuntimeError(f"Q3: fine halo mode {dl.As[0].mode}")
+    held, levels = q_hold_levels(kernels, tpar, "Q3", "65k", dl)
+    out = []
+    for cycle, ref in (("V", 10), ("K", 6)):
+        with Counted(kernels, totals) as c:
+            _, info, s, err = q_amg_solve(tpar, rt.cg, dl, b, rel_tol=1e-8,
+                                          max_iter=100, cycle=cycle)
+        it = int(info.iterations)
+        if int(info.status) not in (1, 2) or not err < 1e-6:
+            raise RuntimeError(f"Q3 {cycle}: status {int(info.status)}, "
+                               f"rms {err:.3e}")
+        launched = {k: n for k, n in c.got.items() if n}
+        q_check_launches("Q3", f"{cycle}-cycle", launched, levels, it)
+        out.append(f"{cycle}-cycle {it} iters (reference {ref}), "
+                   f"{s / max(it, 1) * 1e3:.1f} ms/iter, launches "
+                   f"{launched}")
+    say("Q3", f"laplacian_2d_block({Q_2D_N}) f64 over {Q_PARTS[0]} parts: "
+        f"setup {setup_s:.1f} s, {len(dl.As)} levels: {q_levels(dl)} | "
+        f"{held} | " + "; ".join(out))
+    blocks3, N3, b3 = q_blocks(rt, "2d", Q3_N, Q_PARTS[0])
+    A3 = rt.laplacian_2d(Q3_N)
+    b3_t = torch.from_numpy(b3).to(A3.device)
+    for kind, ref in (("rs", "46/18"), ("pairwise", None)):
+        t0 = time.perf_counter()
+        dl3 = tpar.distributed_amg_setup(blocks3, (N3, N3), kind=kind,
+                                         coarse_size=100)
+        setup_s = time.perf_counter() - t0
+        held3, levels3 = q_hold_levels(kernels, tpar, "Q3", kind, dl3)
+        with Counted(kernels, totals) as c:
+            _, info, s, err = q_amg_solve(tpar, rt.cg, dl3, b3,
+                                          rel_tol=1e-8, max_iter=200)
+        h_ser = amg_hierarchy(A3, kind, coarse_size=100)
+        _, info_ser = rt.cg(A3, b3_t, M=cycle_closure(h_ser), rel_tol=1e-8,
+                            max_iter=200)
+        it_d, it_s = int(info.iterations), int(info_ser.iterations)
+        if int(info.status) not in (1, 2) or not err < 1e-6 \
+                or it_d > 3 * it_s + 5:
+            raise RuntimeError(f"Q3 {kind}: status {int(info.status)}, rms "
+                               f"{err:.3e}, {it_d} iters vs 3*{it_s}+5")
+        launched = {k: n for k, n in c.got.items() if n}
+        q_check_launches("Q3", kind, launched, levels3, it_d)
+        say("Q3", f"laplacian_2d({Q3_N}) {kind} over {Q_PARTS[0]} parts: "
+            f"setup {setup_s:.1f} s, levels {q_levels(dl3)} | {held3} | "
+            f"distributed {it_d} iters vs serial {it_s} (bound "
+            f"3*serial+5" + (f"; reference {ref}" if ref else "")
+            + f"), rms {err:.2e}, {s / max(it_d, 1) * 1e3:.1f} ms/iter, "
+            f"launches {launched}")
+
+
+def phase_q4(rt, tpar, kernels, totals):
+    """BlockJacobi with local SPAI, FSAI, ILU(0), ILUT on
+    laplacian_3d(Q_LAP_N) over 8 parts: cg for spai and fsai, fgmres for
+    ilu0 and ilut, each against the unpreconditioned solve's count."""
+    rows = (("spai", "cg"), ("fsai", "cg"), ("ilu0", "fgmres"),
+            ("ilut", "fgmres"))
+    # the card's apply against the CPU's, at a small size
+    checks = []
+    for kind, _ in rows:
+        worst = 0.0
+        small = {}
+        for dev in (CARD, "cpu"):
+            A_s = rt.laplacian_3d(Q_CHECK_N, device=dev)
+            Ag_s = tpar.distribute_csr(A_s, Q_PARTS[0])
+            M_s = tpar.block_jacobi_precond(Ag_s, kind)
+            r = torch.from_numpy(np.random.default_rng(11).standard_normal(
+                Ag_s.nparts * Ag_s.n_local)).to(dev)
+            small[dev] = M_s.operator(Ag_s.nparts)(r)
+        _, worst = rel_err(small[CARD], small["cpu"].to(CARD),
+                           f"Q4 {kind} card vs CPU apply", TOL[torch.float64])
+        checks.append(f"{kind} {worst:.1e}")
+    say("Q4", f"BlockJacobi apply on the card vs the CPU, laplacian_3d("
+        f"{Q_CHECK_N}) over {Q_PARTS[0]} parts: " + ", ".join(checks))
+    A = rt.laplacian_3d(Q_LAP_N)
+    b = rhs_of_ones(A)
+    Ag = tpar.distribute_csr(A, Q_PARTS[0])
+    held, per_apply = q_hold_interiors(kernels, tpar, "Q4", "operator", Ag)
+    say("Q4", f"laplacian_3d({Q_LAP_N}) f64 over {Q_PARTS[0]} parts: "
+        f"{held}")
+    kw = dict(rel_tol=1e-8, max_iter=2000)
+    base = {}
+    for solver in ("cg", "fgmres"):
+        with Counted(kernels, totals) as c:
+            _, info, _ = q_solve(tpar, getattr(rt, solver), Ag, b, None,
+                                 **kw)
+        base[solver] = int(info.iterations)
+        q_check_launches("Q4", f"{solver} unpreconditioned", c.got,
+                         [per_apply], base[solver])
+        say("Q4", f"{solver} unpreconditioned: status {int(info.status)}, "
+            f"{base[solver]} iters")
+    for kind, solver in rows:
+        t0 = time.perf_counter()
+        M = tpar.block_jacobi_precond(Ag, kind)
+        build_s = time.perf_counter() - t0
+        with Counted(kernels, totals) as c:
+            x, info, s = q_solve(tpar, getattr(rt, solver), Ag, b, M, **kw)
+        it, err = check_solve(f"Q4 {kind}", x, info, 2, 1e-6)
+        if it > base[solver]:
+            raise RuntimeError(f"Q4 {kind}: {it} iterations, "
+                               f"unpreconditioned {base[solver]}")
+        launched = {k: n for k, n in c.got.items() if n}
+        q_check_launches("Q4", kind, launched, [per_apply], it)
+        say("Q4", f"laplacian_3d({Q_LAP_N}) f64 over {Q_PARTS[0]} parts, "
+            f"{solver} + BlockJacobi({kind}): build {build_s:.1f} s | "
+            f"{it} iters (unpreconditioned {base[solver]}), status 2, "
+            f"|x-1|/|1|={err:.1e}, {s:.2f} s, "
+            f"{s / max(it, 1) * 1e3:.3f} ms/iter, launches {launched}")
+        del M
+
+
+def q5_worker(address, rank, world):
+    """One process of phase Q5: its row block of laplacian_3d(Q_LAP_N),
+    its part of the operator planned on the card, CG + Jacobi over
+    gloo. Prints one JSON line."""
+    import rocalution_tpu_torch as rt
+    from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+    from rocalution_tpu_torch.parallel.multiproc import (
+        dist_solve_spmd, global_csr_multiproc, process_comm)
+
+    os.environ[PLAN_CACHE_ENV] = "0"
+    torch.set_num_threads(1)     # processes sharing the host's cores
+    comm = process_comm(address, world, rank)
+    N = Q_LAP_N ** 3
+    nl = -(-N // world)
+    lo, hi = rank * nl, min(N, (rank + 1) * nl)
+    t0 = time.perf_counter()
+    block = rt.utils.generators.laplacian_3d_block(Q_LAP_N, lo, hi)
+    Ag = global_csr_multiproc(block, (N, N), comm)
+    setup_s = time.perf_counter() - t0
+    r, c, d = block
+    b = np.zeros(Ag.n_local)
+    np.add.at(b, r, d)
+    diag = np.ones(Ag.n_local)
+    own = c - lo == r
+    np.add.at(diag, r[own], d[own] - 1.0)
+    x_true = np.zeros(Ag.n_local)
+    x_true[: hi - lo] = 1.0
+    kw = dict(inv_diag_local=1.0 / diag, x_true_local=x_true, rel_tol=1e-8,
+              max_iter=2000)
+    dist_solve_spmd(rt.cg, Ag, b, comm, **kw)               # warm-up
+    for key in kernels.launches:
+        kernels.launches[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info, err = dist_solve_spmd(rt.cg, Ag, b, comm, **kw)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    print(json.dumps({
+        "rank": rank, "mode": Ag.mode, "status": int(info.status),
+        "iterations": int(info.iterations), "err": err, "seconds": s,
+        "setup_s": setup_s, "kernel": plan_key(Ag.int_wjd.parts[0]),
+        "launches": {k: n for k, n in kernels.launches.items() if n}}),
+        flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def phase_q5(totals, want_it):
+    """dist_solve_spmd CG + Jacobi on laplacian_3d(Q_LAP_N), one part per
+    process (Q_PROCS processes on the one card, gloo): the count must
+    equal Q1's at as many parts."""
+    import socket
+
+    from rocalution_tpu_torch.parallel.comm import BACKEND
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    address = f"tcp://localhost:{s.getsockname()[1]}"
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        Q5_WORKER + [address, str(rank), str(Q_PROCS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(Q_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=Q5_TIMEOUT_S)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("Q5: a process failed:\n" + "\n".join(outs))
+    got = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    its = {g["iterations"] for g in got}
+    if its != {want_it} or any(g["status"] != 2 for g in got):
+        raise RuntimeError(f"Q5: counts {sorted(its)}, statuses "
+                           f"{[g['status'] for g in got]}; Q1 at "
+                           f"{Q_PROCS} parts: {want_it}")
+    err = got[0]["err"] / np.sqrt(Q_LAP_N ** 3)
+    if not err < 1e-6:
+        raise RuntimeError(f"Q5: |x-1|/|1| = {err:.3e}")
+    for g in got:
+        for key, n in g["launches"].items():
+            totals[key] = totals.get(key, 0) + n
+    it = got[0]["iterations"]
+    slowest = max(g["seconds"] for g in got)
+    say("Q5", f"laplacian_3d({Q_LAP_N}) f64, dist_solve_spmd CG + Jacobi, "
+        f"{Q_PROCS} processes on one card over {BACKEND} "
+        f"({got[0]['mode']}, {got[0]['kernel']}): {it} iters (Q1 at "
+        f"{Q_PROCS} parts: {want_it}), |x-1|/|1|={err:.1e} | per process: "
+        f"setup {max(g['setup_s'] for g in got):.1f} s, solve "
+        f"{slowest:.2f} s, {slowest / it * 1e3:.3f} ms/iter, launches "
+        f"{got[0]['launches']} | {time.perf_counter() - t0:.0f} s in all")
+
+
+def phase_q(rt, kernels, totals, want_d):
+    """The distributed layer on the card (module docstring)."""
+    from rocalution_tpu_torch import parallel as tpar
+
+    t0 = time.perf_counter()
+
+    def lap(name):
+        torch.cuda.empty_cache()
+        say(name, f"phase {name}: {time.perf_counter() - t0:.0f} s")
+
+    counts = phase_q1(rt, tpar, kernels, totals, want_d)
+    lap("Q1")
+    t0 = time.perf_counter()
+    phase_q2(rt, tpar, kernels, totals)
+    lap("Q2")
+    t0 = time.perf_counter()
+    phase_q3(rt, tpar, kernels, totals)
+    lap("Q3")
+    t0 = time.perf_counter()
+    phase_q4(rt, tpar, kernels, totals)
+    lap("Q4")
+    t0 = time.perf_counter()
+    phase_q5(totals, counts[(Q_PROCS, "ppermute")])
+    lap("Q5")
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
@@ -2869,7 +3382,8 @@ def main():
 
     rows, bf16 = phase_n1(rt, kernels, totals, {
         f"laplacian_3d({LAP_N}) f32 unsplit": (lap32, {}),
-        f"random_banded_spd({RAND_N}) f32": (rand32, {})}, win_ops)
+        f"random_banded_spd({RAND_N}) f32": (rand32, {})}, win_ops,
+        plans.name)
     measured.update(rows)
     del win_ops
     torch.cuda.empty_cache()
@@ -2886,6 +3400,8 @@ def main():
     phase_p(rt, kernels, totals, {"D": want_d, "E": want_e}, plans.name)
     lap("P")
     plans.cleanup()
+    phase_q(rt, kernels, totals, want_d)
+    lap("Q")
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:
@@ -2902,4 +3418,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--q5-worker"]:
+        q5_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    else:
+        main()

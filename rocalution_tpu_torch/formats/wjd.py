@@ -207,8 +207,14 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
     plain torch ops per diagonal, and the kernel serves the same diagonals
     for less (f32 CG + SA-AMG, ROADMAP.md section 3, fault 6).
     """
+    if _is_bf16(values_dtype):
+        # the layout is planned from the values as given and they are
+        # rounded afterwards: the plan of their own type (cached or not)
+        # serves both types
+        return _rounded_to_bf16(csr_to_wjd_plan(
+            vals, cols, indptr, shape, wlog=wlog, max_slots=max_slots,
+            kernel_mode=kernel_mode, split_dia=split_dia, cache=cache))
     n, m = int(shape[0]), int(shape[1])
-    bf16 = _is_bf16(values_dtype)
     vals = np.asarray(vals)
     cols = np.asarray(cols, dtype=np.int64)
     indptr = np.asarray(indptr, dtype=np.int64)
@@ -252,19 +258,9 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
             vals, cols, rows = vals[keep], cols[keep], rows[keep]
             nnz = len(vals)
 
-    def _finish(plan_out, slots=True):
+    def _finish(plan_out):
         plan_out["dia_data"] = dia_data
         plan_out["dia_offsets"] = dia_offsets
-        if bf16:
-            # as the JAX planner: an empty slot plan keeps its values' dtype
-            # (its planes are zeros), and only the DIA part is rounded
-            keys = ("data", "spill_val", "dia_data") if slots \
-                else ("dia_data",)
-            for key in keys:
-                if plan_out[key] is not None:
-                    plan_out[key] = _round_to_bf16(plan_out[key])
-            if slots:
-                plan_out["value_dtype"] = "bfloat16"
         if cache_key is not None:
             from . import wjd_cache
 
@@ -275,7 +271,7 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
         empty = np.zeros(0, np.int64)
         return _finish(_assemble(
             vals, empty, empty, empty, empty, 1, n, m, 0, 8,
-            spill=(empty, empty, vals), slot_info=None), slots=False)
+            spill=(empty, empty, vals), slot_info=None))
 
     d = cols - rows
     t = rows >> 10
@@ -414,6 +410,22 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                          slot_info=(slot_t, slot_wid, k_of_slot),
                          kernel_mode=kernel_mode, mode_u=mode_u)
     return _finish(plan_out)
+
+
+def _rounded_to_bf16(plan: dict) -> dict:
+    """`plan` with its values rounded to bfloat16 (`csr_to_wjd_plan`'s
+    ``values_dtype="bfloat16"``). As the JAX planner: an empty slot plan
+    (no entries in slots or spill) keeps its values' dtype, its planes
+    being zeros, and only its DIA part is rounded."""
+    slots = int(plan["nnz"]) > 0
+    out = dict(plan)
+    for key in (("data", "spill_val", "dia_data") if slots
+                else ("dia_data",)):
+        if out.get(key) is not None:
+            out[key] = _round_to_bf16(out[key])
+    if slots:
+        out["value_dtype"] = "bfloat16"
+    return out
 
 
 # x-plane size above which the JAX planner sizes groups for its windowed
@@ -863,3 +875,180 @@ def from_csr(A, device=None, **kwargs):
                           value_dtype=np.dtype(d.dtype).name)
     return _plan_to_wjd(csr_to_wjd_plan(d, i, p, A.shape, **kwargs),
                         device=device)
+
+
+def stack_wjd_plan(parts, shape, *, wlog=None,
+                   max_slots: Optional[int] = 128) -> dict:
+    """Host plan of P same-shape CSR triplets with their static fields
+    unified, the arrays of the JAX package's `stack_wjd` (its
+    formats/wjd.py) with a leading (P,) axis: one kernel shape serves
+    every part of a distributed operator's interior. Part 0's auto choice
+    fixes ``wlog`` and the kernel mode for every part; K, pad_lo, xp_len
+    and the spill length are the parts' maxima; an x plane of more than
+    X_VMEM_BUDGET bytes in f32 (``m * 4``) gives the windowed grouping
+    and per-step windows on that unified grouping. f64 values are one
+    native plane (module docstring). ``part_nnz`` holds each part's own
+    entry count; ``nnz`` is their sum, as in the JAX package."""
+    ws = []
+    wl = wlog
+    kmode = None
+    for (v, c, p) in parts:
+        w = csr_to_wjd_plan(v, c, p, shape,
+                            wlog=(wl if wl is not None else "auto"),
+                            max_slots=max_slots,
+                            kernel_mode=(kmode or "auto"),
+                            split_dia=False)
+        if wl is None:
+            wl = w["wlog"]
+        if kmode is None:
+            kmode = w["kernel_mode"]   # part 0 decides for every part
+        ws.append(w)
+
+    P = len(ws)
+    n, m = int(shape[0]), int(shape[1])
+    K = max(w["brow"].shape[1] for w in ws)
+    windowed_x = int(m) * 4 > X_VMEM_BUDGET
+    group = _auto_group_windowed(K) if windowed_x else _auto_group(K)
+    T = max(1, -(-n // TILE))
+    Tp = -(-T // group) * group
+    pad_lo = -(-max(w["pad_lo"] for w in ws) // 128) * 128
+    nj = (1 << wl) // 128 + 1
+    load_need = _load_rows(nj) + (8 if kmode == "roll" else 0)
+    xp_len = max(
+        max((int(w["brow"].max()) + (pad_lo - w["pad_lo"]) // 128
+             + load_need) * 128 for w in ws),
+        -(-(pad_lo + m) // 128) * 128,
+    )
+    nspill = max(w["spill_row"].shape[0] for w in ws)
+    vdtype = ws[0]["data"].dtype
+
+    def alloc(shp, dtype, fill=0):
+        return np.full((P,) + shp, fill, dtype=dtype)
+
+    data = alloc((Tp, K, 8, 128), vdtype)
+    uloc = (None if ws[0]["uloc"] is None
+            else alloc((Tp, K, 8, 128), ws[0]["uloc"].dtype))
+    brow = alloc((Tp, K), np.int64)
+    real = alloc((Tp, K), bool)
+    # roll mode reads diag_u unconditionally: pad slots must be 0, not -1
+    diag = alloc((Tp, K), np.int32, fill=(0 if kmode == "roll" else -1))
+    sr = alloc((nspill,), np.int32)
+    sc = alloc((nspill,), np.int32)
+    sv = alloc((nspill,), ws[0]["spill_val"].dtype)
+
+    for q, w in enumerate(ws):
+        Tq, Kq = w["brow"].shape
+        tq = min(Tq, Tp)
+        data[q, :tq, :Kq] = w["data"][:tq]
+        if uloc is not None:
+            uloc[q, :tq, :Kq] = w["uloc"][:tq]
+        brow[q, :tq, :Kq] = (w["brow"][:tq]
+                             + (pad_lo - w["pad_lo"]) // 128)
+        real[q, :tq, :Kq] = w["real"][:tq]
+        diag[q, :tq, :Kq] = w["diag_u"][:tq]
+        ns = w["spill_row"].shape[0]
+        if ns:
+            sr[q, :ns] = w["spill_row"]
+            sc[q, :ns] = w["spill_col"]
+            sv[q, :ns] = w["spill_val"]
+
+    # per-step windows on the UNIFIED grouping (each part's own plan used
+    # its own group and Tp): the base is the lowest real brow of the step,
+    # the other slots are re-based onto it, and win_rows is the widest
+    # span over all parts
+    win_base = None
+    win_rows = 0
+    if windowed_x:
+        nsteps = Tp // group
+        b3 = brow.reshape(P, nsteps, group * K)
+        r3 = real.reshape(P, nsteps, group * K)
+        BIG = np.int64(1) << 40
+        bmin = np.where(r3, b3, BIG).min(axis=2)
+        bsup = np.where(r3, b3, -1).max(axis=2)
+        empty = bmin >= BIG
+        bmin = np.where(empty, 0, bmin)
+        bsup = np.maximum(bsup, bmin)
+        brow = np.where(r3, b3, bmin[:, :, None]).reshape(P, Tp, K)
+        win_base = bmin.astype(np.int32)
+        win_rows = int((bsup - bmin).max()) + load_need
+        win_rows = -(-win_rows // 8) * 8 + 8
+        xp_len = max(xp_len, (int(win_base.max()) + win_rows) * 128)
+
+    return dict(
+        data=data, uloc=uloc, brow=brow.astype(np.int32), diag_u=diag,
+        win_base=win_base, win_rows=int(win_rows),
+        spill_row=sr, spill_col=sc, spill_val=sv,
+        shape=(n, m), pad_lo=int(pad_lo), xp_len=int(xp_len),
+        nnz=int(sum(w["nnz"] for w in ws)),
+        part_nnz=tuple(int(w["nnz"]) for w in ws),
+        group=int(group), wlog=int(wl),
+        value_dtype=ws[0]["value_dtype"], kernel_mode=kmode or "gather",
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedWJD:
+    """The per-part WJD plans of a distributed operator's interior, with
+    the static fields unified across parts (`stack_wjd_plan`). Part q is
+    an ordinary WJD of its own (`shard_of`), so the interior apply
+    launches the serial entry point once per part, as `shard_map` runs
+    the JAX kernel once per shard. A gather-mode part on the card carries
+    its own compact slice form (window-relative where the plan is
+    windowed). `stacked(name)` gives an array with the leading (P,) axis
+    of the JAX package's stacked WJD."""
+
+    parts: Tuple[WJD, ...]
+
+    @property
+    def nparts(self) -> int:
+        return len(self.parts)
+
+    @property
+    def kernel_mode(self) -> str:
+        return self.parts[0].kernel_mode
+
+    @property
+    def nnz(self) -> int:
+        return sum(w.nnz for w in self.parts)
+
+    def stacked(self, name: str) -> Optional[torch.Tensor]:
+        """Field `name` of every part stacked on a new leading axis."""
+        got = [getattr(w, name) for w in self.parts]
+        return None if got[0] is None else torch.stack(got)
+
+
+def _part_plan(plan: dict, q: int) -> dict:
+    """The plan of part q of a stacked plan: its arrays, the unified
+    static fields and its own entry count."""
+    out = {k: plan[k] for k in ("win_rows", "shape", "pad_lo", "xp_len",
+                                "group", "wlog", "value_dtype",
+                                "kernel_mode")}
+    for k in ("data", "uloc", "brow", "diag_u", "win_base", "spill_row",
+              "spill_col", "spill_val"):
+        out[k] = None if plan.get(k) is None else plan[k][q]
+    out["nnz"] = int(plan["part_nnz"][q])
+    out["dia_data"], out["dia_offsets"] = None, ()
+    return out
+
+
+def stacked_from_plan(plan: dict, device) -> StackedWJD:
+    """Materialize a stacked host plan part by part (`_plan_to_wjd`: the
+    reach and window checks, compacting, one upload per array)."""
+    return StackedWJD(tuple(_plan_to_wjd(_part_plan(plan, q), device)
+                            for q in range(plan["brow"].shape[0])))
+
+
+def stack_wjd(parts, shape, *, wlog=None, max_slots: Optional[int] = 128,
+              device=None) -> StackedWJD:
+    """Plan P same-shape CSR triplets ``(vals, cols, indptr)`` with unified
+    static fields (`stack_wjd_plan`) and put the parts on ``device``."""
+    from ..config import resolve_device
+
+    return stacked_from_plan(
+        stack_wjd_plan(parts, shape, wlog=wlog, max_slots=max_slots),
+        resolve_device(device))
+
+
+def shard_of(W: StackedWJD, q: int = 0) -> WJD:
+    """Part q of a stacked plan, as the serial entry points take it."""
+    return W.parts[q]

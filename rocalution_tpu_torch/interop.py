@@ -57,6 +57,41 @@ def wjd_from_numpy(fields: dict, device=None) -> WJD:
     return _plan_to_wjd(plan, device=resolve_device(device))
 
 
+def global_csr_from_numpy(fields: dict, device=None):
+    """GlobalCSR on ``device`` from the JAX ``GlobalCSR``'s fields as
+    numpy (its static fields as plain values). Its stacked ``int_wjd``,
+    given as a dict of the JAX WJD's fields, becomes the port's per-part
+    plans: an f64 float-float pair becomes one f64 plane, and each part's
+    entry count is its ``int_nnz`` (the JAX plan keeps only their sum)."""
+    from .parallel.partition import ARRAY_FIELDS, from_host_arrays
+
+    device = resolve_device(device)
+    host = {k: np.asarray(fields[k]) for k in ARRAY_FIELDS}
+    int_nnz = tuple(int(k) for k in fields.get("int_nnz", ()))
+    int_wjd = None
+    if fields.get("int_wjd") is not None:
+        from .formats.wjd import stacked_from_plan
+
+        w = fields["int_wjd"]
+        plan = {k: (None if w.get(k) is None else np.asarray(w[k]))
+                for k in _WJD_ARRAYS}
+        plan.update({k: w[k] for k in _WJD_STATICS if k in w})
+        if w.get("data_lo") is not None:
+            plan["data"] = plan["data"].astype(np.float64) + np.asarray(
+                w["data_lo"]).astype(np.float64)
+        plan["part_nnz"] = int_nnz
+        plan["value_dtype"] = plan["data"].dtype.name
+        int_wjd = stacked_from_plan(plan, device)
+    return from_host_arrays(
+        host, device, int_wjd=int_wjd, nparts=int(fields["nparts"]),
+        n_local=int(fields["n_local"]), n_global=int(fields["n_global"]),
+        shape=tuple(int(v) for v in fields["shape"]),
+        n_local_col=int(fields["n_local_col"]),
+        n_global_col=int(fields["n_global_col"]),
+        shifts=tuple(int(s) for s in fields["shifts"]),
+        mode=str(fields["mode"]), int_nnz=int_nnz)
+
+
 def matrix_from_numpy(fmt: str, fields: dict, device=None):
     """Matrix of format `fmt` on ``device`` from the fields of the JAX
     object of the same name as numpy arrays and plain values."""

@@ -1,7 +1,12 @@
 """Shared helpers for Krylov solvers.
 
-Counterpart of rocalution_tpu/solvers/krylov/_common.py, local reductions
-only. PyTorch has no device `while_loop`, so `run_chunked` runs a solver
+Counterpart of rocalution_tpu/solvers/krylov/_common.py. A solver runs
+distributed when ``axis_name`` is a communicator (parallel/comm.py): its
+vectors are this process's parts end to end, and every reduction sums
+per-part partials over the parts (the JAX package's `psum` over the mesh
+axis; `pmax` for the L-infinity norm).
+
+PyTorch has no device `while_loop`, so `run_chunked` runs a solver
 body in chunks of `check_every` steps: each step keeps its new carry only
 where `running` holds (`select_tree`), and the host reads `running` once
 per chunk. Iteration counts, statuses and histories therefore do not
@@ -30,24 +35,69 @@ class ReductionOps(NamedTuple):
     dot_nonconj: Callable
     norm: Callable
     sum: Callable
-    allreduce: Callable          # identity: the reductions are local
+    # conj(V) @ w over the whole vector, for the rows of a (k, n) basis V:
+    # the JAX package's `allreduce(conj(V) @ w)`
+    project: Callable
     res_norm: Callable = blas1.norm
+    parts: int = 1               # parts the vectors hold in this process
 
 
-def make_reductions(axis_name: Optional[str],
-                    res_norm_type: int = 2) -> ReductionOps:
+def _project_local(V, w):
+    # conj(V) w as conj(V conj(w)): no conjugated copy of V
+    return (V @ w.conj()).conj()
+
+
+def make_reductions(axis_name=None, res_norm_type: int = 2) -> ReductionOps:
+    """Local reductions, or, where ``axis_name`` is a communicator
+    (parallel/comm.py), the mesh-global ones: each part reduces its own
+    slice of the vector, then the communicator sums (or takes the max of)
+    the per-part partials."""
     if res_norm_type not in (1, 2, 3):
         raise ValueError(
             f"res_norm must be 1 (L1), 2 (L2) or 3 (L-infinity), got "
             f"{res_norm_type!r}")
-    if axis_name is not None:
-        raise NotImplementedError(
-            "distributed reductions (axis_name) are not ported yet")
-    local = {1: blas1.asum, 2: blas1.norm, 3: blas1.amax_value}
-    return ReductionOps(
-        blas1.dot, blas1.dot_nonconj, blas1.norm, blas1.reduce_sum,
-        lambda v: v, local[res_norm_type],
-    )
+    if axis_name is None:
+        local = {1: blas1.asum, 2: blas1.norm, 3: blas1.amax_value}
+        return ReductionOps(
+            blas1.dot, blas1.dot_nonconj, blas1.norm, blas1.reduce_sum,
+            _project_local, local[res_norm_type],
+        )
+    if isinstance(axis_name, str):
+        raise TypeError("axis_name must be a communicator of "
+                        "rocalution_tpu_torch.parallel.comm, not a mesh "
+                        "axis name")
+    comm = axis_name
+    Pl = comm.local
+
+    def parts(x):
+        return x.reshape(Pl, -1)
+
+    def pdot(x, y):
+        return comm.psum(torch.linalg.vecdot(parts(x), parts(y)))
+
+    def pdot_nc(x, y):
+        return comm.psum(torch.sum(parts(x) * parts(y), dim=1))
+
+    def pnorm(x):
+        xp = parts(x)
+        return torch.sqrt(comm.psum(torch.real(torch.linalg.vecdot(xp, xp))))
+
+    def psum(x):
+        return comm.psum(torch.sum(parts(x), dim=1))
+
+    def pproject(V, w):
+        Vp = V.reshape(V.shape[0], Pl, -1).transpose(0, 1)      # (Pl, k, nl)
+        part = torch.bmm(Vp.conj(), parts(w).unsqueeze(-1))[..., 0]
+        return comm.psum(part)
+
+    def pasum(x):
+        return comm.psum(torch.sum(torch.abs(parts(x)), dim=1))
+
+    def pamax(x):
+        return comm.pmax(torch.amax(torch.abs(parts(x)), dim=1))
+
+    pres = {1: pasum, 2: pnorm, 3: pamax}[res_norm_type]
+    return ReductionOps(pdot, pdot_nc, pnorm, psum, pproject, pres, Pl)
 
 
 def select_tree(pred, on_true, on_false):

@@ -69,10 +69,9 @@ def _gmres_core(A, b, x0, M, ctrl, check_every, kwargs, *, flexible: bool):
         w = op(zj)
         # CGS2 orthogonalization against V[0..j]
         mask = masks[j]                       # rows 0..j
-        # conj(V) w as conj(V conj(w)): no conjugated copy of V
-        h1 = (V @ w.conj()).conj() * mask
+        h1 = red.project(V, w) * mask
         w = w - h1 @ V
-        h2 = (V @ w.conj()).conj() * mask
+        h2 = red.project(V, w) * mask
         w = w - h2 @ V
         h = h1 + h2
         hj1 = red.norm(w)

@@ -5,9 +5,10 @@ src/solvers/krylov/idr.{hpp,cpp}, ``SetShadowSpace`` and
 ``SetRandomSeed``, idr.hpp:73-76): the bi-orthogonalised, preconditioned
 IDR(s) of van Gijzen and Sonneveld, with the omega angle correction
 (kappa = 0.7). s is a Python int, so the inner k-sweep unrolls; the s
-shadow inner products of a step are one (s, n) @ (n,) product. A step
-checks the residual s+1 times (`guarded_check`), and every update after a
-hit is masked by the live flag. The loop runs in masked chunks (see
+shadow inner products of a step are one (s, n) @ (n,) product
+(`ReductionOps.project`). A step checks the residual s+1 times
+(`guarded_check`), and every update after a hit is masked by the live
+flag. The loop runs in masked chunks (see
 _common.run_chunked).
 
 The shadow space P is an orthonormalised (n, s) normal draw. The JAX
@@ -56,7 +57,11 @@ def idr(A, b, x0=None, M=None, *, ctrl: IterationControl | None = None,
     r = b - op(x)
     state = ctrl.init_residual(torch.abs(red.res_norm(r)))
 
-    P = shadow_basis(n, s, seed, draw).to(device=dev, dtype=dtype)
+    # distributed, every part draws the same (n/parts, s) basis, as every
+    # shard of the JAX package's shard_map draws it from one key
+    P = shadow_basis(n // red.parts, s, seed, draw).to(device=dev,
+                                                       dtype=dtype)
+    P = P.repeat(1, red.parts)
     G = (torch.zeros_like(b),) * s
     U = (torch.zeros_like(b),) * s
     Mm = torch.eye(s, dtype=dtype, device=dev)
@@ -64,7 +69,7 @@ def idr(A, b, x0=None, M=None, *, ctrl: IterationControl | None = None,
     ar = torch.arange(s, device=dev)
 
     def shadow_dots(v):
-        return red.allreduce(P @ v)  # (s,)
+        return red.project(P, v)  # (s,)
 
     def combine(c, V):
         """sum_j c[j] V[j] for a tuple of vectors V."""

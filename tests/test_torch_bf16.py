@@ -17,6 +17,7 @@ which needs a card.
 """
 
 import dataclasses
+import os
 import sys
 
 import jax
@@ -330,3 +331,36 @@ def test_bf16_plan_refuses_an_f64_x():
         kernels.wjd_spmv(W, torch.ones(900, dtype=torch.float64))
     with pytest.raises(ValueError):
         from_csr(rt.laplacian_2d(30), values_dtype="float16")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bf16_plan_from_the_cached_plan_of_its_values(tmp_path, monkeypatch,
+                                                      dtype):
+    """A bfloat16 plan is the plan of the same values in their own type
+    with its values rounded: where that plan is in the plan cache, it is
+    served without planning again and without a second cache entry, and
+    every array equals the bf16 plan made cold (which equals the JAX
+    planner's, test_bf16_plan_equals_jax)."""
+    from rocalution_tpu_torch.formats import wjd_cache
+
+    A = rt.laplacian_2d(150, dtype=dtype)
+    trip = A.numpy_triplet()
+    assert len(trip[0]) >= 100_000
+    cold = torch_plan(*trip, A.shape, values_dtype=BF16, cache=False)
+    monkeypatch.setenv(wjd_cache.ENV, str(tmp_path))
+    torch_plan(*trip, A.shape)                       # the plan of the values
+
+    def no_planning(*args, **kwargs):
+        raise AssertionError("planned again")
+
+    monkeypatch.setattr(torch_wjd, "_assemble", no_planning)
+    served = torch_plan(*trip, A.shape, values_dtype=BF16)
+    assert len(os.listdir(tmp_path)) == 1            # one entry serves both
+    assert served["value_dtype"] == cold["value_dtype"] == BF16
+    for key, want in cold.items():
+        got = served[key]
+        if isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype, key
+            np.testing.assert_array_equal(got, want, err_msg=key)
+        else:
+            assert got == want, key

@@ -156,6 +156,20 @@ def test_iteration_control_max_iter():
 
 
 def test_distributed_reductions_not_ported():
+    """Distributed reductions were what this slice left out; they are
+    ported now (tests/test_torch_parallel.py holds them to the JAX
+    package): `axis_name` takes a communicator (a mesh axis's name, which
+    means nothing to torch, raises), and over one part a CG is the
+    serial CG, bit for bit."""
+    from rocalution_tpu_torch.parallel import make_comm
+
     A = rt.laplacian_2d(4)
-    with pytest.raises(NotImplementedError):
-        rt.cg(A, torch.ones(16, dtype=torch.float64), axis_name="x")
+    b = torch.ones(16, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        rt.cg(A, b, axis_name="x")
+    x1, i1 = rt.cg(A, b, axis_name=make_comm(1), record_history=True)
+    x0, i0 = rt.cg(A, b, record_history=True)
+    assert int(i1.iterations) == int(i0.iterations)
+    assert torch.equal(x1, x0)
+    torch.testing.assert_close(i1.history, i0.history, rtol=0, atol=0,
+                               equal_nan=True)

@@ -38,6 +38,9 @@ from rocalution_tpu_torch.solvers.multigrid import (aggregation,
                                                     aggregation_device, base,
                                                     rs)
 from rocalution_tpu_torch.utils import log
+from rocalution_tpu_torch.parallel import (amg, amg_setup, comm, matops,
+                                           multiproc, ops, partition,
+                                           precond, solve)
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 print(bad)
 sys.exit(1 if bad or _build._loaded or native._TRIED else 0)
@@ -84,8 +87,7 @@ def test_public_surface():
 
 def test_item_9_surface():
     """The JAX package's names of ROADMAP item 9: IO (every reader and
-    writer but the global pair, which waits for the distributed layer),
-    BLAS-1's 27 functions, the generators, the stencil and the plan
+    writer; the global pair came with the distributed layer), BLAS-1's 27 functions, the generators, the stencil and the plan
     cache."""
     import rocalution_tpu_torch.formats.wjd_cache as cache
     from rocalution_tpu_torch.ops import blas1
@@ -115,7 +117,28 @@ def test_item_9_surface():
                      "save_plan"))):
         for name in names:
             assert hasattr(mod, name), (mod.__name__, name)
-    assert not hasattr(rt.io, "read_global_csr")
+    assert hasattr(rt.io, "read_global_csr")
+    assert hasattr(rt.io, "write_global_csr")
+
+
+def test_parallel_surface():
+    """The JAX package's `rocalution_tpu.parallel.__all__`, with
+    `make_comm` in place of `make_mesh`, and multiproc.py's names with
+    `process_comm` in place of `process_mesh`."""
+    from rocalution_tpu_torch import parallel
+    from rocalution_tpu_torch.parallel import multiproc
+
+    jax_all = ast.literal_eval(next(
+        node.value for node in ast.walk(ast.parse(
+            (ROOT / "rocalution_tpu/parallel/__init__.py").read_text()))
+        if isinstance(node, ast.Assign)
+        and node.targets[0].id == "__all__"))
+    for name in jax_all:
+        name = "make_comm" if name == "make_mesh" else name
+        assert name in parallel.__all__ and hasattr(parallel, name), name
+    for name in ("allgather_host", "process_comm", "global_csr_multiproc",
+                 "dist_solve_spmd"):
+        assert hasattr(multiproc, name), name
 
 
 def test_multigrid_surface():

@@ -931,3 +931,72 @@ def test_complex_cg_goes_through_the_kernels(cuda_device):
     assert abs(int(info.iterations) - int(info_cpu.iterations)) <= 1
     A, info, got = solve(cuda_device, rt.gmres)
     assert int(info.status) == 2 and got >= 2 * int(info.iterations)
+
+
+# the distributed layer: a GlobalCSR's interior parts through the kernels
+DIST_CASES = {
+    "roll_f64": (lambda: rt.laplacian_3d(16), np.float64),
+    "gather_f64": (lambda: rt.random_banded_spd(8000, bandwidth=512),
+                   np.float64),
+    "roll_f32": (lambda: rt.laplacian_3d(16), np.float32),
+}
+
+
+@pytest.mark.parametrize("nparts", [4, 8])
+@pytest.mark.parametrize("key", sorted(DIST_CASES))
+def test_distributed_interiors_launch_once_per_part(cuda_device, key,
+                                                    nparts):
+    """On the card `distribute_csr` plans every interior part; one apply
+    launches the part's kernel once per part, and each part's kernel
+    matches its plain version."""
+    from rocalution_tpu_torch import parallel as tpar
+
+    make, dtype = DIST_CASES[key]
+    A = make()
+    d, i, p = A.numpy_triplet()
+    A = rt.CSR.from_arrays(d.astype(dtype), i, p, A.shape, device="cpu")
+    Ag = tpar.distribute_csr(A, nparts, device=cuda_device)
+    W = Ag.int_wjd
+    assert W is not None and W.nparts == nparts
+    assert key.startswith(W.kernel_mode)
+    x = _x(A.shape[0], Ag.dtype, cuda_device)
+    xp = tpar.distribute_vector(x, nparts, Ag.n_local)
+    comm = tpar.make_comm(nparts)
+    before = kernels.launches[key]
+    y = tpar.gather_vector(tpar.shard_spmv(Ag, xp, comm), Ag.n_global)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + nparts
+    for q in range(nparts):
+        Wq = W.parts[q]
+        got = kernels.wjd_spmv(Wq, xp[q])
+        want = kernels.wjd_reference(Wq, xp[q])
+        assert _rel(got, want) <= TOL[Wq.dtype], (key, q)
+    plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape,
+                               device=cuda_device)
+    rt.set_auto_wjd(False)
+    try:
+        want = rt.spmv(plain, x)
+    finally:
+        rt.set_auto_wjd(None)
+    assert _rel(y, want) <= TOL[Ag.dtype], key
+
+
+def test_distributed_cg_on_cuda_goes_through_the_kernel(cuda_device):
+    from rocalution_tpu_torch import parallel as tpar
+
+    A = rt.laplacian_3d(16, device="cpu")
+    Ag = tpar.distribute_csr(A, 4, device=cuda_device)
+    ones = torch.ones(A.shape[0], dtype=torch.float64, device=cuda_device)
+    rhs = tpar.gather_vector(tpar.shard_spmv(
+        Ag, tpar.distribute_vector(ones, 4, Ag.n_local),
+        tpar.make_comm(4)), Ag.n_global)
+    before = kernels.launches["roll_f64"]
+    x, info = tpar.dist_solve(rt.cg, Ag, rhs, M=tpar.block_jacobi_diag(Ag),
+                              rel_tol=1e-10, max_iter=500, check_every=8)
+    it = int(info.iterations)
+    assert int(info.status) == 2
+    # the residual apply, then every step of the chunks of 8 the loop ran
+    # (steps after the stop are masked but still apply A): 4 launches each
+    steps = -(-it // 8) * 8
+    assert kernels.launches["roll_f64"] - before == 4 * (1 + steps)
+    assert float((x - 1.0).abs().max()) < 1e-7
