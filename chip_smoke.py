@@ -87,7 +87,22 @@ each went through its kernels:
        laplacian_2d_block(256), V- and K-cycle, then RS and pairwise on
        16k rows against the serial hierarchy. Q4: BlockJacobi with local
        SPAI, FSAI, ILU(0), ILUT at 1M rows. Q5: CG over 4 processes on
-       the card, one part each, over torch.distributed (gloo)
+       the card, one part each, over torch.distributed (gloo). Q6: the
+       windowed branch of the stacked plan at full size:
+       laplacian_3d(186) f64 (6,434,856 rows) over 2 parts from per-part
+       row blocks, each part past the stacked rule's 3,145,728 columns:
+       one win_roll_f64 launch a part an apply, held to plain, then CG +
+       BlockJacobi(diagonal) through the kernels and plain
+  R    the bench CLI and the client samples. R1: bench_cli.main on
+       laplacian_3d(100) f64 (CG, BiCGStab, GMRES + Jacobi, then SA-AMG),
+       its plan read back from the run's plan cache; each case's engine
+       must name kernel entry points, and its count and status are held
+       to the same case with auto-attach off. R2: every sample of
+       clients/samples_torch run in this process at its own size
+       (poisson3d_large at 1M rows, poisson3d_dist at 2.1M rows over 8
+       parts: its 256^3 default is cut for time), each held to its own
+       check and, where it solves a CSR operator on the card, to at
+       least one kernel launch
 
 The gather-mode kernels of C, H and I read the plan's row-compacted slice
 form (window-relative in I, where the kernel reads x through each step's
@@ -110,8 +125,11 @@ import contextlib
 import dataclasses
 import importlib.util
 import inspect
+import io
 import json
 import os
+import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -184,6 +202,32 @@ Q_CHECK_N = 24              # Q4: the card-against-CPU BlockJacobi apply
 Q_PROCS = 4                 # Q5: processes (one part each) on the card
 Q5_TIMEOUT_S = 300
 Q5_WORKER = [sys.executable, os.path.abspath(__file__), "--q5-worker"]
+Q_WIN_N = 186               # Q6: laplacian_3d(186), 6,434,856 rows, over
+Q_WIN_PARTS = 2             # 2 parts of 3,217,428 columns: windowed
+R_LAP_N = 100               # R1: bench_cli on laplacian_3d(100) f64
+R1_CASES = (("cg,bicgstab,gmres", "jacobi"), ("saamg", "none"))
+# R1: iterations the kernel path may differ from plain (phase N2's rule:
+# BiCGStab's count is ruled by rounding, so only its status is held)
+R1_SLACK = {"cg": 1, "gmres": 2, "saamg": 1, "bicgstab": None}
+SAMPLES = "clients/samples_torch/"
+# R2: env of the samples not run at their own default size
+R2_ENV = {"poisson3d_large": {"POISSON_N": "100"},
+          "poisson3d_dist": {"POISSON_N": "128", "PARTS": "8"}}
+# R2: samples that demonstrate something other than a convergent solve
+# (tests/test_clients.py): their own printed check is the check
+R2_NO_CONVERGENCE_CHECK = {
+    "key", "simple_spmv", "power_method", "benchmark", "benchmark_dist",
+    "async_transfer", "cmk", "global_io", "laplace_2d_weak_scaling",
+    "laplace_3d_weak_scaling"}
+# R2: samples that solve no CSR operator through a solver in this process
+# (or turn the plans off), so no kernel counter need move
+R2_NO_KERNEL = {
+    "key": "no solve", "simple_spmv": "rt.spmv without a solver",
+    "benchmark": "rt.spmv of DIA/ELL/HYB without a solver",
+    "direct": "dense solvers", "stencil": "matrix-free operator",
+    "global_cg_amg": "wjd=False, as the JAX sample",
+    "global_io": "read_global_csr gives a GlobalCSR without interior plans",
+    "multiprocess_cg": "its solves run in its worker processes"}
 PLAN_CACHE_ENV = "ROCALUTION_TPU_TORCH_PLAN_CACHE"
 FIXTURES = "tests/fixtures/"
 REPS = 10
@@ -3261,6 +3305,52 @@ def phase_q5(totals, want_it):
         f"{got[0]['launches']} | {time.perf_counter() - t0:.0f} s in all")
 
 
+def phase_q6(rt, tpar, kernels, totals):
+    """Fault 12 at full size: laplacian_3d(Q_WIN_N) f64 from per-part row
+    blocks over Q_WIN_PARTS parts, each part's x plane past the stacked
+    rule (m * 4 > 12 MiB), so its interior is planned windowed:
+    `q_hold_interiors` (one win_roll_f64 launch a part an apply, held to
+    plain), then CG + block_jacobi_diag through the kernels and plain."""
+    from rocalution_tpu_torch.formats.wjd import X_VMEM_BUDGET, windowed
+
+    t0 = time.perf_counter()
+    blocks, N, b = q_blocks(rt, "3d", Q_WIN_N, Q_WIN_PARTS)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ag = tpar.global_csr_from_blocks(blocks, (N, N))
+    setup_s = time.perf_counter() - t0
+    del blocks
+    W = Ag.int_wjd
+    cols = W.parts[0].shape[1]
+    if not (cols * 4 > X_VMEM_BUDGET and all(
+            windowed(Wq, Wq.x_dtype) for Wq in W.parts)):
+        raise RuntimeError(f"Q6: parts of {cols} columns are not windowed")
+    tag = f"{Q_WIN_PARTS} parts {Ag.mode}"
+    held, per_apply = q_hold_interiors(kernels, tpar, "Q6", tag, Ag)
+    if set(per_apply) != {"win_roll_f64"}:
+        raise RuntimeError(f"Q6: launches of one apply {per_apply}")
+    M = tpar.block_jacobi_diag(Ag)
+    cg_kw = dict(rel_tol=1e-8, max_iter=4000)
+    with Counted(kernels, totals) as c:
+        xw, iw, sw = q_solve(tpar, rt.cg, Ag, b, M, **cg_kw)
+    xp_, ip, sp_ = q_solve(tpar, rt.cg, q_plain(Ag), b, M, **cg_kw)
+    it_w, err_w = check_solve("Q6 WJD", xw, iw, 2, 1e-6)
+    it_p, _ = check_solve("Q6 plain", xp_, ip, 2, 1e-6)
+    if abs(it_w - it_p) > 1:
+        raise RuntimeError(f"Q6: WJD {it_w} vs plain {it_p} iterations")
+    launched = {k: n for k, n in c.got.items() if n}
+    q_check_launches("Q6", "CG", launched, [per_apply], it_w)
+    say("Q6", f"laplacian_3d({Q_WIN_N}) f64, {N} rows over {tag} "
+        f"({cols} columns a part): blocks {gen_s:.1f} s, "
+        f"global_csr_from_blocks (interiors planned, windowed: win_rows "
+        f"{W.parts[0].win_rows}, {len(W.parts[0].win_base)} windows a part) "
+        f"{setup_s:.1f} s | {held} | CG + block_jacobi_diag: WJD {it_w} "
+        f"iters (|x-1|/|1|={err_w:.1e}) {sw:.2f} s, "
+        f"{sw / max(it_w, 1) * 1e3:.3f} ms/iter; plain {it_p} iters "
+        f"{sp_:.2f} s, {sp_ / max(it_p, 1) * 1e3:.3f} ms/iter | launches "
+        f"{launched}")
+
+
 def phase_q(rt, kernels, totals, want_d):
     """The distributed layer on the card (module docstring)."""
     from rocalution_tpu_torch import parallel as tpar
@@ -3285,6 +3375,132 @@ def phase_q(rt, kernels, totals, want_d):
     t0 = time.perf_counter()
     phase_q5(totals, counts[(Q_PROCS, "ppermute")])
     lap("Q5")
+    t0 = time.perf_counter()
+    phase_q6(rt, tpar, kernels, totals)
+    lap("Q6")
+
+
+def r1_rows(bench_cli, argv):
+    """bench_cli.main(argv) in this process, its JSON lines kept off this
+    script's output; the rows it wrote with --out."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r1_") as tmp:
+        out = os.path.join(tmp, "rows.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench_cli.main(argv + ["--out", out])
+        with open(out) as f:
+            return [json.loads(line) for line in f]
+
+
+def phase_r1(rt, kernels, totals, plans):
+    """The bench CLI at full size on the card: each case through the
+    kernels (auto-attach, the plan read back from the run's plan cache)
+    and with auto-attach off, held to each other."""
+    from rocalution_tpu_torch import bench_cli
+
+    base = ["--matrix", "laplacian3d", "--size", str(R_LAP_N)]
+    rows = {"WJD": [], "plain": []}
+    for solvers, pre in R1_CASES:
+        argv = base + ["--solver", solvers, "--precond", pre]
+        with plan_cache(plans), Counted(kernels, totals):
+            rows["WJD"] += r1_rows(bench_cli, argv)
+        rt.set_auto_wjd(False)
+        try:
+            rows["plain"] += r1_rows(bench_cli, argv)
+        finally:
+            rt.set_auto_wjd(None)
+    for w, p in zip(rows["WJD"], rows["plain"]):
+        tag = f"R1 {w['solver']}+{w['precond']} {w['matrix']}"
+        if "error" in w or "error" in p:
+            raise RuntimeError(f"{tag}: {w.get('error')} {p.get('error')}")
+        engine = set(w["engine"].split("+"))
+        need = {"roll_f64"} | ({"gather_f64"} if w["solver"] == "saamg"
+                               else set())
+        if not need <= engine or p["engine"] != "plain":
+            raise RuntimeError(f"{tag}: engine {w['engine']} (need {need}),"
+                               f" plain path {p['engine']}")
+        slack = R1_SLACK[w["solver"]]
+        if (w["convergence"], p["convergence"]) != (True, True) or (
+                slack is not None and abs(w["iter"] - p["iter"]) > slack):
+            raise RuntimeError(f"{tag}: WJD {w['iter']} iters converged "
+                               f"{w['convergence']}, plain {p['iter']} "
+                               f"converged {p['convergence']}")
+        if not w["nrmmax_err"] < 1e-5:
+            raise RuntimeError(f"{tag}: max|x-1| {w['nrmmax_err']:.3e}")
+        say("R1", f"{w['solver']}+{w['precond']} {w['matrix']} n={w['n']}: "
+            f"engine {w['engine']}, {w['iter']} iters (plain {p['iter']}, "
+            f"held {'to the status' if slack is None else f'within {slack}'}"
+            f"), max|x-1| {w['nrmmax_err']:.1e} | import / analyze / solve "
+            f"s: WJD {w['time_import_s']} / {w['time_analyze_s']} / "
+            f"{w['time_solve_s']}, plain {p['time_import_s']} / "
+            f"{p['time_analyze_s']} / {p['time_solve_s']} | ms/iter WJD "
+            f"{w['time_solve_s'] / max(w['iter'], 1) * 1e3:.3f}, plain "
+            f"{p['time_solve_s'] / max(p['iter'], 1) * 1e3:.3f}")
+
+
+def r2_check(name, out):
+    """tests/test_clients.py's check of a sample's output; the counts it
+    printed."""
+    counts = [int(v) for v in re.findall(r"iters=(\d+)", out)]
+    if name not in R2_NO_CONVERGENCE_CHECK:
+        errs = re.findall(r"err(?:or)?[=:]\s*([0-9.e+-]+)", out)
+        if not ("status=1" in out or "status=2" in out
+                or "converged" in out.lower()
+                or (errs and float(errs[-1]) < 1e-3)):
+            raise RuntimeError(f"R2 {name}: no convergence in\n{out}")
+        return f"converged, iters {counts}"
+    return f"own check passed, iters {counts}"
+
+
+def phase_r2(kernels, totals):
+    """Every sample of SAMPLES in this process at its own size (R2_ENV
+    for the two scale demos): its own check, and a launch on the card
+    where it solves a CSR operator."""
+    names = sorted(f[:-3] for f in os.listdir(SAMPLES) if f.endswith(".py"))
+    for name in names:
+        path = os.path.join(SAMPLES, f"{name}.py")
+        env = R2_ENV.get(name, {})
+        saved = (list(sys.argv), list(sys.path),
+                 {k: os.environ.get(k) for k in env})
+        os.environ.update(env)
+        sys.argv = [path]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with Counted(kernels, totals) as c, \
+                    contextlib.redirect_stdout(out):
+                runpy.run_path(path, run_name="__main__")
+            torch.cuda.synchronize()
+        finally:
+            sys.argv, sys.path = saved[0], saved[1]
+            for k, v in saved[2].items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        s = time.perf_counter() - t0
+        check = r2_check(name, out.getvalue())
+        moved = {k: n for k, n in c.got.items() if n}
+        if not moved and name not in R2_NO_KERNEL:
+            raise RuntimeError(f"R2 {name}: no kernel launch")
+        why = f" ({R2_NO_KERNEL[name]})" if name in R2_NO_KERNEL else ""
+        size = f" at {env}" if env else ""
+        say("R2", f"{name}{size}: {s:.1f} s | {check} | launches "
+            f"{moved}{why}")
+        torch.cuda.empty_cache()
+
+
+def phase_r(rt, kernels, totals, plans):
+    t0 = time.perf_counter()
+    phase_r1(rt, kernels, totals, plans)
+    say("R1", f"phase R1: {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    dist = R2_ENV["poisson3d_dist"]
+    say("R2", f"poisson3d_dist at POISSON_N={dist['POISSON_N']}, "
+        f"PARTS={dist['PARTS']}: its 256^3 default is cut for time (the "
+        "JAX sample's docstring gives 412 s of setup alone)")
+    phase_r2(kernels, totals)
+    say("R2", f"phase R2: {time.perf_counter() - t0:.0f} s")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3294,7 +3510,7 @@ def main():
     from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 
     # no phase writes under ~: the plan cache is off but where a phase
-    # points it at this run's directory (C, I and P1: an operator planned
+    # points it at this run's directory (C, I, P1 and R1: an operator planned
     # again is read back) or at a fresh one (P2)
     os.environ[PLAN_CACHE_ENV] = "0"
     plans = tempfile.TemporaryDirectory(prefix="chip_smoke_plans_")
@@ -3399,9 +3615,11 @@ def main():
     lap("O")
     phase_p(rt, kernels, totals, {"D": want_d, "E": want_e}, plans.name)
     lap("P")
-    plans.cleanup()
     phase_q(rt, kernels, totals, want_d)
     lap("Q")
+    phase_r(rt, kernels, totals, plans.name)
+    plans.cleanup()
+    lap("R")
 
     idle = [k for k in KERNELS if not totals.get(k)]
     if idle:

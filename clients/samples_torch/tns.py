@@ -1,0 +1,21 @@
+"""TNS preconditioner sample (reference: clients/samples/tns.cpp):
+truncated Neumann series preconditioned CG. Port of
+clients/samples/tns.py."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..")))
+
+import torch
+
+import rocalution_tpu_torch as rt
+
+A = rt.laplacian_2d(48)
+ones = torch.ones(A.shape[0], dtype=A.dtype, device=A.device)
+b = rt.spmv(A, ones)
+M = rt.precond.tns(A)
+x, info = rt.cg(A, b, M=M, rel_tol=1e-8, max_iter=2000)
+print(f"cg+tns: iters={int(info.iterations)} status={int(info.status)} "
+      f"err={float(torch.linalg.norm(x - 1)):.2e}")

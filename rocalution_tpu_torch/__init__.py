@@ -22,14 +22,18 @@ layer (native/), PMIS optionally on the device, and cycled on the device
 of the fine operator; complex operators (a ComplexWJD of two real planes
 through the same kernels), matrix-free stencils (Stencil), the on-disk
 plan cache (formats/wjd_cache.py) and IO (io/: MatrixMarket, the binary
-container, rocsparseio). It imports torch, numpy and scipy and never jax.
+container, rocsparseio), the runtime switches (`get_config`,
+`set_verbose`, `set_debug`), utils (`key`, `log`, `profile`, `validate`)
+and the benchmark CLI (bench_cli.py). It imports torch, numpy and scipy
+and never jax.
 Constructors build on the card ("cuda") unless the caller passes
 ``device="cpu"`` or calls ``set_default_device("cpu")``.
 """
 
 from . import backend, config, io, ops, precond, utils
 from .backend import info, init, stop, sync
-from .config import set_auto_wjd, set_default_device, set_default_dtype
+from .config import (get_config, set_auto_wjd, set_debug, set_default_device,
+                     set_default_dtype, set_verbose)
 from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
                       ComplexWJD, Stencil, cast_values, convert,
                       laplace2d_stencil, laplace3d_stencil, to_csr)
@@ -61,6 +65,7 @@ __all__ = [
     "anisotropic_laplacian_2d",
     "info", "init", "stop", "sync",
     "set_default_device", "set_default_dtype", "set_auto_wjd", "backend",
+    "get_config", "set_debug", "set_verbose",
     "config", "precond",
 ]
 

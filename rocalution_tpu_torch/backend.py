@@ -54,6 +54,8 @@ def info() -> str:
         lines.append(f"  device name      : {torch.cuda.get_device_name(dev)}")
         lines.append(f"  device count     : {torch.cuda.device_count()}")
     lines.append(f"  default dtype    : {cfg.default_dtype}")
+    lines.append(f"  index dtype      : {cfg.index_dtype}")
     out = "\n".join(lines)
-    print(out)
+    if cfg.verbose >= 1:
+        print(out)
     return out

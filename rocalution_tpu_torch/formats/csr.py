@@ -62,21 +62,26 @@ class CSR(MatrixBase):
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-        order = np.lexsort((cols, rows))
+        nrow, ncol = int(shape[0]), int(shape[1])
+        # one stable sort of the (row, col) key, on torch's threads:
+        # lexsort's order, in a fraction of its time (int32 indices keep
+        # nrow * ncol below 2**62, so the key cannot overflow)
+        order = torch.sort(torch.from_numpy(rows * ncol + cols),
+                           stable=True).indices.numpy()
         rows, cols, vals = rows[order], cols[order], vals[order]
         if sum_duplicates and len(rows) > 0:
             same = (rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])
             if same.any():
-                # accumulate duplicate entries
+                # accumulate duplicate entries in order onto the first of
+                # each run; + 0 makes a lone -0.0 the +0.0 that summing
+                # from zero gives
                 group = np.concatenate([[0], np.cumsum(~same)])
-                out_vals = np.zeros(group[-1] + 1, dtype=vals.dtype)
-                np.add.at(out_vals, group, vals)
                 first = np.concatenate([[True], ~same])
+                out_vals = vals[first] + vals.dtype.type(0)
+                np.add.at(out_vals, group[~first], vals[~first])
                 rows, cols, vals = rows[first], cols[first], out_vals
-        nrow = int(shape[0])
         indptr = np.zeros(nrow + 1, dtype=np.int64)
-        np.add.at(indptr, rows + 1, 1)
-        indptr = np.cumsum(indptr)
+        indptr[1:] = np.cumsum(np.bincount(rows, minlength=nrow))
         return CSR.from_arrays(vals, cols, indptr, shape, device=device)
 
     @staticmethod

@@ -48,6 +48,10 @@ class Stencil(MatrixBase):
         return (n, n)
 
     @property
+    def ndim(self) -> int:
+        return len(self.grid)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.weights.dtype
 

@@ -166,6 +166,20 @@ _COST_ROLL = 10.0
 _FF_COST_ROLL = 18.0
 
 
+def _unique_inverse(keys: np.ndarray):
+    """``np.unique(keys, return_inverse=True)`` of non-negative int64
+    keys. Where the keys span at most a few times their count, a presence
+    table gives the same sorted values and inverse without a sort."""
+    n = len(keys)
+    span = int(keys.max()) + 1 if n else 0
+    if n == 0 or span > 4 * n + (1 << 22):
+        return np.unique(keys, return_inverse=True)
+    present = np.zeros(span, dtype=bool)
+    present[keys] = True
+    rank = np.cumsum(present, dtype=np.int32 if span < 1 << 31 else np.int64)
+    return np.flatnonzero(present), (rank[keys] - 1).astype(np.intp)
+
+
 def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
                     max_slots: Optional[int] = 128,
                     kernel_mode: str = "auto",
@@ -291,7 +305,7 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
         wspan = int(wid.max()) - wmin + 1
         rspan = int(rank.max()) + 1
         enc = (t * wspan + (wid - wmin)) * rspan + rank
-        slot_enc, inv = np.unique(enc, return_inverse=True)
+        slot_enc, inv = _unique_inverse(enc)
         slot_t = slot_enc // (wspan * rspan)
         slot_wid = (slot_enc // rspan) % wspan + wmin
         tile_first = np.searchsorted(slot_t, np.arange(T, dtype=np.int64))
@@ -317,11 +331,13 @@ def csr_to_wjd_plan(vals, cols, indptr, shape, *, wlog="auto",
     def plan_roll(wl):
         """Slots keyed by (tile, diagonal): jagged-diagonal layout."""
         dmin = int(d.min())
-        dspan = int(d.max()) - dmin + 1
-        enc = t * dspan + (d - dmin)
-        slot_enc, inv_r = np.unique(enc, return_inverse=True)
-        slot_t_r = slot_enc // dspan
-        slot_d = slot_enc % dspan + dmin
+        # slots = the sorted distinct (tile, diagonal) pairs, keyed by the
+        # rank of the diagonal among the distinct ones (same order)
+        d_vals, d_id = _unique_inverse(d - dmin)
+        nd = len(d_vals)
+        slot_enc, inv_r = _unique_inverse(t * nd + d_id)
+        slot_t_r = slot_enc // nd
+        slot_d = d_vals[slot_enc % nd] + dmin
         tile_first = np.searchsorted(slot_t_r, np.arange(T, dtype=np.int64))
         k_of_slot_r = (np.arange(len(slot_enc), dtype=np.int64)
                        - tile_first[slot_t_r])
@@ -464,18 +480,17 @@ def _assemble(vals_k, rows_k, u_k, t_k, k_e, K, n, m, nnz, wlog,
 
     if slot_info is not None and len(vals_k):
         slot_t, slot_wid, k_of_slot = slot_info
-        s = (rows_k >> 7) & 7
-        l = rows_k & 127
-        val_arr[t_k, k_e, s, l] = vals_k
-        u_arr[t_k, k_e, s, l] = u_k
+        # flat position of each entry in the (Tp, K, 8, 128) planes: its
+        # slot, then its row within the tile (sublane s, lane l)
+        flat = (t_k * K + k_e) * TILE + (rows_k & (TILE - 1))
+        val_arr.reshape((-1,) + vals_k.shape[1:])[flat] = vals_k
 
         b = slot_t * TILE + (slot_wid << wlog)       # 128-aligned, may be <0
         pad_lo = int(max(0, -(b.min())))
         pad_lo = -(-pad_lo // 128) * 128
         brow_arr[slot_t, k_of_slot] = (b + pad_lo) >> 7
 
-        occ = np.zeros((Tp, K, 8, 128), dtype=bool)
-        occ[t_k, k_e, s, l] = True
+        u_k32 = u_k.astype(np.int32)
         if kernel_mode == "roll":
             # every slot was forced to one u at conversion: diag_u = that
             # offset (0 for empty slots, whose values are all zero)
@@ -483,21 +498,24 @@ def _assemble(vals_k, rows_k, u_k, t_k, k_e, K, n, m, nnz, wlog,
             if mode_u is not None:
                 mu = mode_u.reshape(-1, K)[: Tp]
                 diag_arr[: mu.shape[0]] = mu.astype(np.int32)
-            u_arr = np.where(occ, u_arr,
-                             diag_arr[:, :, None, None]).astype(np.int32)
+            hole = diag_arr
         else:
             # diagonal slots: every REAL entry shares one u -> pad holes
-            # with it
-            u_masked = np.where(occ, u_arr, -1)
-            u_max = u_masked.reshape(Tp, K, -1).max(axis=2)
-            u_min_real = np.where(occ, u_arr, win).reshape(
-                Tp, K, -1).min(axis=2)
+            # with it (the extremes of u over each slot's entries)
+            slot = flat // TILE
+            u_max = np.full(Tp * K, -1, np.int32)
+            np.maximum.at(u_max, slot, u_k32)
+            u_min_real = np.full(Tp * K, win, np.int32)
+            np.minimum.at(u_min_real, slot, u_k32)
+            u_max, u_min_real = u_max.reshape(Tp, K), u_min_real.reshape(
+                Tp, K)
             is_diag = (u_max == u_min_real) & (u_max >= 0)
             diag_arr = np.where(is_diag, u_max, -1).astype(np.int32)
-            fill = np.broadcast_to(np.maximum(u_max, 0)[:, :, None, None],
-                                   u_arr.shape)
-            u_arr = np.where(occ, u_arr, np.where(is_diag[:, :, None, None],
-                                                  fill, 0)).astype(np.int32)
+            hole = np.where(is_diag, np.maximum(u_max, 0), 0)
+        # a hole takes its slot's fill, an entry its own u
+        u_arr = np.repeat(hole.astype(np.int32).reshape(-1), TILE).reshape(
+            Tp, K, 8, 128)
+        u_arr.reshape(-1)[flat] = u_k32
 
         max_brow = int(brow_arr.max())
 

@@ -19,10 +19,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ...config import default_device
+from ...config import default_device, get_config
 from ...formats import MatrixBase
 from ...ops import blas1
 from ...ops.spmv import as_operator
+from ...utils import validate
+from ...utils.log import log_debug
 from ..iter_ctrl import IterationControl
 
 
@@ -166,9 +168,14 @@ def prepare(A, b, x0, M, ctrl: Optional[IterationControl], kwargs) -> Tuple:
     axis_name = kwargs.pop("axis_name", None)
     # SetResidualNorm analog: 1=L1, 2=L2 (default), 3=L-infinity
     res_norm_type = int(kwargs.pop("res_norm", 2))
+    log_debug(A, "solve", getattr(b, "shape", None), axis_name, kwargs)
     op = as_operator(A)
     device = operator_device(A)
     b = torch.as_tensor(b, device=device)
+    if get_config().debug:
+        if isinstance(A, MatrixBase):
+            validate.check_matrix(A)
+        validate.check_vector(b, "rhs")
     x = (torch.zeros_like(b) if x0 is None
          else torch.as_tensor(x0, dtype=b.dtype, device=device))
     precond = identity_precond if M is None else as_operator(M)

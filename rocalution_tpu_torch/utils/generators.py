@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..config import numpy_dtype, resolve_device
+from ..config import default_dtype, numpy_dtype, resolve_device  # noqa: F401
 from ..formats import CSR
 
 
@@ -195,8 +195,8 @@ def random_banded_spd(n: int, nnz_per_row: int = 7, bandwidth: int = 8192,
     r = np.concatenate([rows, cols])
     c = np.concatenate([cols, rows])
     v = np.concatenate([vals, vals])
-    dom = np.zeros(n, dtype=np.float64)
-    np.add.at(dom, r, np.abs(v).astype(np.float64))
+    # the row sums in input order, as np.add.at gives them
+    dom = np.bincount(r, weights=np.abs(v).astype(np.float64), minlength=n)
     r = np.concatenate([r, np.arange(n)])
     c = np.concatenate([c, np.arange(n)])
     v = np.concatenate([v, (dom + 1.0).astype(dtype)])

@@ -1000,3 +1000,70 @@ def test_distributed_cg_on_cuda_goes_through_the_kernel(cuda_device):
     steps = -(-it // 8) * 8
     assert kernels.launches["roll_f64"] - before == 4 * (1 + steps)
     assert float((x - 1.0).abs().max()) < 1e-7
+
+
+# the windowed branch of the stacked plan: a 1 KiB budget puts every part
+# of these operators (several tiles a part) in the windowed regime
+WIN_DIST_CASES = {
+    "roll_f64": (lambda: rt.laplacian_3d(24, device="cpu"), np.float64),
+    "roll_f32": (lambda: rt.laplacian_3d(24, device="cpu"), np.float32),
+    "gather_f32": (lambda: rt.random_banded_spd(16000, bandwidth=512,
+                                                device="cpu"), np.float32),
+}
+
+
+@pytest.mark.parametrize("key", sorted(WIN_DIST_CASES))
+def test_distributed_windowed_interiors(cuda_device, key, monkeypatch):
+    """With the budget of `_windowed_regime` the stacked planner gives each
+    interior part windows: one apply launches the part's windowed kernel
+    once a part and nothing else, and matches the plain CSR product; one
+    distributed CG through it reaches the plain interior path's count."""
+    from rocalution_tpu_torch import parallel as tpar
+
+    _windowed_regime(monkeypatch)
+    nparts = 4
+    make, dtype = WIN_DIST_CASES[key]
+    A = make()
+    d, i, p = A.numpy_triplet()
+    A = rt.CSR.from_arrays(d.astype(dtype), i, p, A.shape, device="cpu")
+    Ag = tpar.distribute_csr(A, nparts, device=cuda_device)
+    W = Ag.int_wjd
+    assert W is not None and key.startswith(W.kernel_mode)
+    for Wq in W.parts:
+        assert windowed(Wq, Wq.dtype) and len(Wq.win_base) > 1
+        assert W.kernel_mode == "roll" or Wq.window_relative
+    x = _x(A.shape[0], Ag.dtype, cuda_device)
+    xp = tpar.distribute_vector(x, nparts, Ag.n_local)
+    comm = tpar.make_comm(nparts)
+    before = dict(kernels.launches)
+    y = tpar.gather_vector(tpar.shard_spmv(Ag, xp, comm), Ag.n_global)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in kernels.launches.items()
+             if n != before[k]}
+    assert moved == {f"win_{key}": nparts}
+    plain = rt.CSR.from_arrays(*A.numpy_triplet(), A.shape,
+                               device=cuda_device)
+    rt.set_auto_wjd(False)
+    try:
+        want = rt.spmv(plain, x)
+    finally:
+        rt.set_auto_wjd(None)
+    assert _rel(y, want) <= TOL[Ag.dtype], key
+    ones = torch.ones(A.shape[0], dtype=Ag.dtype, device=cuda_device)
+    rhs = tpar.gather_vector(tpar.shard_spmv(
+        Ag, tpar.distribute_vector(ones, nparts, Ag.n_local), comm),
+        Ag.n_global)
+    M = tpar.block_jacobi_diag(Ag)
+    kw = dict(rel_tol=1e-10 if dtype == np.float64 else 1e-5,
+              max_iter=1000, check_every=8)
+    before = kernels.launches[f"win_{key}"]
+    xs, info = tpar.dist_solve(rt.cg, Ag, rhs, M=M, **kw)
+    it = int(info.iterations)
+    assert int(info.status) == 2
+    steps = -(-it // 8) * 8
+    assert kernels.launches[f"win_{key}"] - before == nparts * (1 + steps)
+    _, info_plain = tpar.dist_solve(
+        rt.cg, dataclasses.replace(Ag, int_wjd=None), rhs, M=M, **kw)
+    assert abs(it - int(info_plain.iterations)) <= 1
+    assert float((xs - 1.0).abs().max()) < (1e-7 if dtype == np.float64
+                                             else 1e-2)

@@ -15,7 +15,9 @@ drift under a 1e-15 change of b, as in test_torch_krylov.py); BlockJacobi
 with its four local kinds gives JAX's status and count; a JAX GlobalCSR
 carried across (`interop.global_csr_from_numpy`) applies as the port's
 own; and the per-rank global files are the JAX package's byte for byte
-and read across.
+and read across. With a 1 KiB X_VMEM_BUDGET the windowed branch of the
+stacked planner gives JAX `stack_wjd`'s arrays and windows, and its
+distributed apply JAX's, in roll f64, roll f32 and gather f32.
 
 The JAX side runs under one `jax.jit` a call: its eager `shard_map`
 compiles every primitive on its own (~8 s a solve, ~4 s an apply).
@@ -176,6 +178,58 @@ def test_stack_wjd_equals_jax(case, one_tile_steps):  # noqa: F811
     scale = np.abs(y_plain).max()
     assert np.abs(y - y_plain).max() <= tol * scale
     assert np.abs(y - _jax_apply(Gj, x)).max() <= tol * scale
+
+
+WINDOWED = {
+    # operator over NP parts (several tiles, so several windows, a part)
+    "lap2d_128_f64_roll": lambda: jrt.laplacian_2d(128),
+    "lap2d_128_f32_roll": lambda: jrt.laplacian_2d(128, dtype=np.float32),
+    "randband_8192_f32_gather": lambda: jrt.random_banded_spd(
+        8192, bandwidth=512, dtype=np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+def test_windowed_stack_wjd_equals_jax(case, monkeypatch):
+    """The windowed branch of the stacked planner: with a 1 KiB budget
+    (tests/test_torch_wjd_window.py) every part's x plane passes
+    X_VMEM_BUDGET, so both planners group by the windowed rule and give
+    each grid step a window on the unified grouping. The stacked arrays,
+    `win_base` and `win_rows` included, are JAX `stack_wjd`'s; each part
+    is in the windowed regime (a gather part with the window-relative
+    compact form); one distributed apply equals JAX's under one
+    `jax.jit(shard_map)` and the port's plain interior apply (rtol 1e-12
+    in f64, 1e-5 in f32)."""
+    import rocalution_tpu.formats.wjd as jax_wjd
+    import rocalution_tpu_torch.formats.wjd as torch_wjd
+
+    for mod in (jax_wjd, torch_wjd):
+        monkeypatch.setattr(mod, "X_VMEM_BUDGET", 1024)
+        monkeypatch.setattr(mod, "_auto_group", lambda K: 1)
+        monkeypatch.setattr(mod, "_auto_group_windowed", lambda K: 1)
+    Aj = WINDOWED[case]()
+    Gj = jpar.distribute_csr(Aj, NP, wjd=True)
+    Gt = tpar.distribute_csr(_port_csr(Aj), NP, wjd=True)
+    _assert_global_equal(Gj, Gt)
+    W = Gt.int_wjd
+    assert W.kernel_mode == case.split("_")[-1]
+    assert Gj.int_wjd.win_base is not None and W.parts[0].win_rows > 0
+    _stacked_plan_equal(Gj.int_wjd, W)
+    for Wq in W.parts:
+        assert torch_wjd.windowed(Wq, Wq.dtype)
+        assert len(Wq.win_base) > 1
+        if W.kernel_mode == "gather":
+            assert Wq.window_relative
+    x = np.random.default_rng(3).standard_normal(Aj.shape[0]).astype(
+        np.asarray(Aj.numpy_triplet()[0]).dtype)
+    rtol = 1e-12 if Gt.dtype == torch.float64 else 1e-5
+    y = _port_apply(Gt, x)
+    y_plain = _port_apply(tpar.distribute_csr(_port_csr(Aj), NP, wjd=False),
+                          x)
+    np.testing.assert_allclose(y, _jax_apply(Gj, x), rtol=rtol,
+                               atol=rtol * np.abs(y_plain).max())
+    np.testing.assert_allclose(y, y_plain, rtol=rtol,
+                               atol=rtol * np.abs(y_plain).max())
 
 
 @pytest.fixture(scope="module")
