@@ -35,16 +35,18 @@ each went through its kernels:
   M    MixedPrecisionDC: bench.py's mpdc row (3 outer iterations), then
        laplacian_3d(100) f64: the outer residual through the f64 kernel,
        the inner CG through the f32 copy's
-  N    bfloat16 values and the rest of the Krylov family. N1: the six bf16
-       kernels on bf16 plans of the f32 operators of C, H and I (direct,
-       blocked right-hand sides, windowed), each against its plain
+  N    bfloat16 values and the rest of the Krylov family. N1: the eight
+       bf16 kernels on bf16 plans of the f32 operators of C, H and I
+       (direct, blocked right-hand sides, windowed; the direct gather plan
+       in the packed form, then in the compact form with 4-byte offsets,
+       each row naming the form and the kernel), each against its plain
        version, against the f32 plan's product, its bound and the library
-       call, through rt.spmv. N2: BiCGStab, BiCGStab(2), QMRCGStab, IDR(4)
-       on convection_diffusion_2d(1024) f64 and CR, FCG, the power method
-       and Chebyshev on laplacian_3d(100) f64, through the kernels and
-       plain, their launches held to their iterations. N3: MixedPrecisionDC
-       on random_banded_spd(1<<20) f64 with an inner CG over a bf16 plan,
-       beside the same solve over the f32 plan
+       call, through rt.spmv. N2: BiCGStab, BiCGStab(2),
+       QMRCGStab, IDR(4) on convection_diffusion_2d(1024) f64 and CR, FCG,
+       the power method and Chebyshev on laplacian_3d(100) f64, through the
+       kernels and plain, their launches held to their iterations. N3:
+       MixedPrecisionDC on random_banded_spd(1<<20) f64 with an inner CG
+       over a bf16 plan, beside the same solve over the f32 plan
   O    the rest of the preconditioner stack and Ruge-Stüben AMG at a
        million rows in f64, through the kernels and plain. O1: CG + RS-AMG
        (greedy/direct on laplacian_2d(1024), pmis/extpi on
@@ -283,7 +285,10 @@ TPU = "rocalution_tpu/ops/pallas/spmv_wjd.py:"
 # launch counter -> (entry point, source, line of the TPU kernel it replaces:
 # _kernel_roll_ff, _kernel_ff, _kernel_roll, _kernel; _kernel_mrhs;
 # _kernel_roll_ff_hbm, _kernel_roll_hbm, _kernel_hbm). The bf16 entry points
-# replace the same kernels run on bfloat16 values.
+# replace the same kernels run on bfloat16 values. The direct bf16 gather
+# kernels go by form: gather_bf16 and spmm_gather_bf16 are the packed
+# form's (a bf16 plan with 2-byte offsets), the *_compact pair the compact
+# form's (4-byte offsets, or a window-relative plan).
 KERNELS = {
     "roll_f64": ("wjd_spmv_roll_f64", "spmv_wjd.cu", 206),
     "gather_f64": ("wjd_spmv_gather_f64", "spmv_wjd.cu", 480),
@@ -297,9 +302,12 @@ KERNELS = {
     "win_roll_f32": ("wjd_spmv_win_roll_f32", "spmv_wjd_win.cu", 233),
     "win_gather_f32": ("wjd_spmv_win_gather_f32", "spmv_wjd_win.cu", 310),
     "roll_bf16": ("wjd_spmv_roll_bf16", "spmv_wjd.cu", 183),
-    "gather_bf16": ("wjd_spmv_gather_bf16", "spmv_wjd.cu", 137),
+    "gather_bf16": ("wjd_spmv_gather_bf16_packed", "wjd_bf16_packed.cu", 137),
     "spmm_roll_bf16": ("wjd_spmm_roll_bf16", "spmm_wjd.cu", 448),
-    "spmm_gather_bf16": ("wjd_spmm_gather_bf16", "spmm_wjd.cu", 448),
+    "spmm_gather_bf16": ("wjd_spmm_gather_bf16_packed", "wjd_bf16_packed.cu",
+                         448),
+    "gather_bf16_compact": ("wjd_spmv_gather_bf16", "spmv_wjd.cu", 137),
+    "spmm_gather_bf16_compact": ("wjd_spmm_gather_bf16", "spmm_wjd.cu", 448),
     "win_roll_bf16": ("wjd_spmv_win_roll_bf16", "spmv_wjd_win.cu", 233),
     "win_gather_bf16": ("wjd_spmv_win_gather_bf16", "spmv_wjd_win.cu", 310),
 }
@@ -973,12 +981,17 @@ class PlanTimer:
 
 def plan_key(W, family=None):
     """The launch counter of the entry point that serves the plan W (a
-    single right-hand side, or `family` "spmm_")."""
+    single right-hand side, or `family` "spmm_"); a direct bf16 gather
+    plan's goes by its form (KERNELS)."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     if family is None:
         family = "win_" if windowed(W, W.x_dtype) else ""
-    return f"{family}{W.kernel_mode}_{TAG[W.dtype]}"
+    key = f"{family}{W.kernel_mode}_{TAG[W.dtype]}"
+    if family != "win_" and W.dtype == torch.bfloat16 and \
+            W.compact_form == "compact":
+        key += "_compact"
+    return key
 
 
 def served_by(M):
@@ -995,10 +1008,20 @@ def served_by(M):
         text += f", {len(W.dia_offsets)} diagonals split off to plain DIA"
     spill = W.spill_row.numel()
     if W.kernel_mode == "gather":
-        text += (f", compact form {W.cval.numel() / max(W.nnz - spill, 1):.3f}"
-                 f" elements a slot entry, {W.coff.element_size()}-byte "
-                 "offsets")
+        text += ", " + form_text(W)
     return text + f", spill {spill} ({spill / max(M.nnz, 1):.3f} of nnz)"
+
+
+def form_text(W):
+    """Which form a gather plan's direct kernels read, and its stored
+    elements (words of the packed form) a slot entry."""
+    stored = W.cval if W.cpack is None else W.cpack
+    per = stored.numel() / max(W.nnz - W.spill_row.numel(), 1)
+    if W.cpack is not None:
+        return (f"packed form {stored.numel()} words, {per:.3f} a slot "
+                "entry (bf16 value | 2-byte offset)")
+    return (f"compact form {stored.numel()} elements, {per:.3f} a slot "
+            f"entry, {W.coff.element_size()}-byte offsets")
 
 
 def amg_cg(rt, A0, b, M, rel_tol, err_tol, tag):
@@ -1699,19 +1722,20 @@ def bf16_copy(rt, A, attach_kw):
     return B, time.perf_counter() - t0
 
 
-def bf16_row(rt, kernels, totals, tag, A, B, key, plan_s):
+def bf16_row(rt, kernels, totals, tag, A, B, key, made):
     """One bf16 single-RHS kernel (direct or windowed) on B's plan: against
     its plain version and the f32 plan's product (A's), timed beside the
     f32 kernel on the same x, its bound and the library call; then the
-    main path, rt.spmv(B, x) with an f32 and a bf16 x."""
+    main path, rt.spmv(B, x) with an f32 and a bf16 x. `made` says how
+    B's plan was made."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     W, W32 = B._wjd_cache, A._wjd_cache
     win = windowed(W, W.x_dtype)
-    if (W.dtype != torch.bfloat16 or key != f"{'win_' if win else ''}"
-            f"{W.kernel_mode}_bf16"):
+    if W.dtype != torch.bfloat16 or key != plan_key(W):
         raise RuntimeError(f"N1 {tag}: the bf16 plan ({W.dtype}, "
-                           f"{W.kernel_mode}, windowed {win}) is not {key}'s")
+                           f"{W.kernel_mode}, windowed {win}, form "
+                           f"{W.compact_form}) is not {key}'s")
     gather = W.kernel_mode == "gather"
     if win:
         launch = kernels.slots_kernel_windowed
@@ -1719,7 +1743,7 @@ def bf16_row(rt, kernels, totals, tag, A, B, key, plan_s):
                  else kernels.slots_plain_windowed)
     else:
         launch = kernels.slots_kernel
-        plain = kernels.slots_plain_compact if gather else kernels.slots_plain
+        plain = kernels.plain_gather(W) if gather else kernels.slots_plain
     x = random_x(rt, A, torch.float32)
     xp, xp32 = kernels.pad_x(W, x), kernels.pad_x(W32, x)
     max_abs, rel_p = norm_err(launch(W, xp), plain(W, xp), key, BF16_TOL)
@@ -1742,11 +1766,11 @@ def bf16_row(rt, kernels, totals, tag, A, B, key, plan_s):
     _, rel_x = norm_err(y2, y1, f"N1 {key} rt.spmv of a bf16 x",
                         BF16_VS_F32_TOL)
     Tp, K = W.brow.shape
-    form = (f"compact {W.cval.numel()} elements ({W.compact_padding_ratio:.3f}"
-            f"x), {W.coff.element_size()}-byte offsets" if gather
-            else f"planes (Tp,K)=({Tp},{K})")
+    form = (f"{form_text(W)} ({W.compact_padding_ratio:.3f}x of nnz)"
+            if gather else f"planes (Tp,K)=({Tp},{K})")
     say("N1", f"{key}: {tag} n={A.shape[0]} nnz={A.nnz} bf16 plan {form}, "
-        f"planned in {plan_s:.1f} s | vs plain {rel_p:.3e} (tol {BF16_TOL:g}),"
+        f"kernel {KERNELS[key][0]}, "
+        f"{made} | vs plain {rel_p:.3e} (tol {BF16_TOL:g}),"
         f" vs the f32 plan {rel_32:.3e} (tol {BF16_VS_F32_TOL:g}), a bf16 x "
         f"vs an f32 one {rel_x:.3e} (norm-wise) | kernel {k_ms * 1e3:.1f} us "
         f"(the f32 plan's kernel on the same x {k32_ms * 1e3:.1f} us), "
@@ -1761,9 +1785,9 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
     holds the single-RHS ones; the main path rt.spmv(B, X)."""
     W, W32 = B._wjd_cache, A._wjd_cache
     gather = W.kernel_mode == "gather"
-    if W.dtype != torch.bfloat16 or key != f"spmm_{W.kernel_mode}_bf16":
+    if W.dtype != torch.bfloat16 or key != plan_key(W, "spmm_"):
         raise RuntimeError(f"N1 {tag}: the bf16 plan is not {key}'s")
-    plain = (kernels.slots_plain_compact_mrhs if gather
+    plain = (kernels.plain_gather(W, mrhs=True) if gather
              else kernels.slots_plain_mrhs)
     X = random_x(rt, A, torch.float32, N_COLS)
     xp, xp32 = kernels.pad_x(W, X, N_COLS), kernels.pad_x(W32, X, N_COLS)
@@ -1782,7 +1806,9 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
         raise RuntimeError(f"N1 {key}: rt.spmv launched {c.got}")
     norm_err(Y, kernels.wjd_spmm(W32, X), f"N1 {key} rt.spmv",
              BF16_VS_F32_TOL)
-    say("N1", f"{key}: {tag} k={N_COLS}, X row-major | vs plain {rel_p:.3e} "
+    form = form_text(W) if gather else "slot planes"
+    say("N1", f"{key}: {tag} k={N_COLS}, X row-major, {form}, kernel "
+        f"{KERNELS[key][0]} | vs plain {rel_p:.3e} "
         f"(tol {BF16_TOL:g}), vs the f32 plan {rel_32:.3e} (tol "
         f"{BF16_VS_F32_TOL:g}) | kernel {k_ms * 1e3:.1f} us (the f32 plan's "
         f"{k32_ms * 1e3:.1f} us), {bounds_text(b)}, plain "
@@ -1792,29 +1818,64 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
                   "library_ms": lib_ms, **b}}
 
 
+def compact_bf16_copy(A, B):
+    """A CSR on A's arrays whose plan is B's packed bf16 plan in the
+    compact form with 4-byte offsets: the form, and so the kernels, that a
+    bf16 plan whose offsets pass 16 bits takes (formats/wjd.py), here at
+    the size of the packed plan; the seconds it took. The compact arrays
+    are the packed form unpacked on the host (`unpack_bf16_slices`, which
+    gives `compact_slices`' arrays bit for bit)."""
+    from rocalution_tpu_torch.formats.base import set_host_cache
+    from rocalution_tpu_torch.formats.wjd import unpack_bf16_slices
+
+    W = B._wjd_cache
+    t0 = time.perf_counter()
+    c = unpack_bf16_slices(*(t.cpu().numpy() for t in (
+        W.cpack, W.slice_ptr, W.xbase)))
+    dev = W.cpack.device
+    Wc = dataclasses.replace(
+        W, cpack=None, slice_ptr=torch.from_numpy(c["slice_ptr"]).to(dev),
+        cval=torch.from_numpy(c["cval"]).to(dev).to(torch.bfloat16),
+        coff=torch.from_numpy(c["coff"].astype(np.int32)).to(dev))
+    Bc = dataclasses.replace(A)
+    set_host_cache(Bc, **A._host_cache)
+    object.__setattr__(Bc, "_wjd_cache", Wc)
+    return Bc, time.perf_counter() - t0
+
+
 def phase_n1(rt, kernels, totals, direct, windowed_ops, plans):
-    """The six bf16 kernels on bf16 plans of f32 operators that earlier
+    """The eight bf16 kernels on bf16 plans of f32 operators that earlier
     phases built and planned in f32: `direct` {tag: (A, attach_kw)} of C
     and H (one roll, one gather), `windowed_ops` {tag: (A, attach_kw)} of
     I. The bf16 plans go through the plan cache at `plans`, where C and I
     left the f32 plans: each is the f32 plan with its values rounded
-    (formats/wjd.py), so the layout is not planned again. Returns the
-    kernel rows and the bf16 copies of `direct`."""
+    (formats/wjd.py), so the layout is not planned again. The gather plan
+    takes the packed form (2-byte offsets); its compact form with 4-byte
+    offsets then holds the compact bf16 pair. Returns the kernel rows and
+    the bf16 copies of `direct`."""
     rows, copies = {}, {}
     for tag, (A, kw) in direct.items():
         with plan_cache(plans):
             B, plan_s = bf16_copy(rt, A, kw)
-        mode = B._wjd_cache.kernel_mode
-        rows.update(bf16_row(rt, kernels, totals, tag, A, B, f"{mode}_bf16",
-                             plan_s))
-        rows.update(bf16_spmm_row(rt, kernels, totals, tag, A, B,
-                                  f"spmm_{mode}_bf16"))
+        made = f"planned in {plan_s:.1f} s"
+        forms = [(B, made)]
+        if B._wjd_cache.compact_form == "packed":
+            Bc, unpack_s = compact_bf16_copy(A, B)
+            forms.append((Bc, f"its packed plan unpacked, offsets widened, "
+                              f"in {unpack_s:.1f} s"))
+        for Bf, made in forms:
+            key = plan_key(Bf._wjd_cache)
+            rows.update(bf16_row(rt, kernels, totals, tag, A, Bf, key, made))
+            rows.update(bf16_spmm_row(rt, kernels, totals, tag, A, Bf,
+                                      plan_key(Bf._wjd_cache, "spmm_")))
         copies[tag] = B
+        del forms
     for tag, (A, kw) in windowed_ops.items():
         with plan_cache(plans):
             B, plan_s = bf16_copy(rt, A, kw)
         rows.update(bf16_row(rt, kernels, totals, tag, A, B,
-                             f"win_{B._wjd_cache.kernel_mode}_bf16", plan_s))
+                             f"win_{B._wjd_cache.kernel_mode}_bf16",
+                             f"planned in {plan_s:.1f} s"))
         del B
         torch.cuda.empty_cache()
     return rows, copies

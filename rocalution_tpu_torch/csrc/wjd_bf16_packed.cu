@@ -1,0 +1,268 @@
+// WJD gather SpMV and SpMM on bfloat16 values for NVIDIA Hopper (sm_90a),
+// over the packed form of the compact slice layout.
+//
+// Two kernels replace two Pallas kernels of the JAX package, run on
+// bfloat16 values with f32 x, sums and y (the JAX kernels' acc_dt):
+//
+//   wjd_spmv_gather_bf16_packed  spmv_wjd.py:_kernel
+//   wjd_spmm_gather_bf16_packed  spmv_wjd.py:_kernel_mrhs
+//
+// (spmv_wjd.py: rocalution_tpu/ops/pallas/spmv_wjd.py)
+//
+// They serve a bfloat16 gather-mode plan on the direct kernels whose offsets
+// fit 16 bits; a bfloat16 plan with 4-byte offsets, or a window-relative one,
+// keeps the compact form and the bf16 instantiations of csrc/spmv_wjd.cu and
+// csrc/spmm_wjd.cu. The choice is made when the plan is uploaded
+// (formats/wjd.py:_plan_to_wjd), by offset width and regime.
+//
+// Semantics: those of the compact kernels (csrc/spmv_wjd.cu): element (j,
+// lane) of slice i multiplies xp[xbase[i] + offset] and adds to row
+// i*32 + lane, ranks in ascending order, which is the slot product's order
+// less its zero padding. The COO spill and the DIA part are the Python
+// wrapper's (rocalution_tpu_torch/ops/cuda/spmv_wjd.py).
+//
+// The packed form (formats/wjd.py:pack_bf16_slices): one 32-bit word a
+// stored element, the value's bfloat16 bits in its low half and its offset
+// in its high half; word (j, lane) of slice i at
+// slice_ptr[i] + (j / 4)*128 + lane*4 + j % 4, a slice's width padded to a
+// multiple of 4 with zero words (value 0, offset 0). So one 16-byte load
+// brings a lane 4 ranks of its row, a warp load is 512 contiguous bytes, and
+// a word widens to its f32 value with one shift (bfloat16 is the high half
+// of an f32) and to its offset with another.
+//
+// Why a form of its own. The compact bf16 kernels are the f32/f64 templates
+// instantiated with V = __nv_bfloat16: per stored element a lane issues a
+// 2-byte load of the value, a 2-byte load of the offset (each warp load half
+// a line) and the gather of x. With 2-byte values the stream is a third
+// smaller than f32's, yet on the H100 at 1M rows (random_banded_spd(1<<20),
+// band +-8192, 21.9M stored elements, 1.40 a nonzero) the bf16 SpMV took
+// 63.1 us against 66.2 us for f32, and the bf16 SpMM (16 columns) 423.1 us
+// against 374.6 us for f32: load instructions a stored element, not bytes,
+// set their pace.
+//
+// Bound: bytes, two flops a stored element and column. The packed form
+// streams 4 bytes a stored element (the compact form's value and offset in
+// one word), x and y.
+//
+// SpMV (wjd_packed_kernel):
+//   * one warp owns one slice and one thread one row, as in the compact
+//     kernel; a lane's loop takes 4 ranks a step from one streaming 16-byte
+//     load (ld.global.cs.v4) and issues their 4 gathers of x (read-only
+//     path) before it adds the 4 products, in rank order, with fmaf;
+//   * the loop is unrolled by 2, so 8 gathers a lane are in flight;
+//   * blocks of 1024 threads: the 32 slices of one tile, whose gathers of x
+//     share lines in the SM's L1.
+//
+// SpMM (wjd_packed_spmm_kernel, X and Y row-major (rows, KC), KC 4, 8, 16):
+//   * one warp owns one slice; a lane loads 4 ranks of its row with one
+//     16-byte load, the next 4 before this group's gathers of X are issued;
+//   * per rank, the row's word is broadcast with one __shfl_sync (the compact
+//     kernel needs two: the value and the offset);
+//   * X is gathered 16 bytes a lane: KC/4 lanes cover a row's KC columns, so
+//     a pass serves 128/KC rows and a rank takes KC/4 passes, each lane
+//     keeping 4 columns of KC/4 rows (KC accumulators); Y is written 16
+//     bytes a lane;
+//   * each column is summed in rank order with fmaf, as the SpMV kernel sums
+//     it, so a column of a blocked product is the single product bit for bit
+//     whatever KC is;
+//   * blocks of 128 threads (4 slices).
+//
+// What was tried (one H100 80GB HBM3 at 700 W, random_banded_spd(1<<20) f32
+// with its values rounded to bf16, 23.5M words, 1.50 a nonzero; us a launch
+// by scripts/bf16_packed_variants.py, the mean of 20 back-to-back launches,
+// the median of 8 rounds; the script keeps the two designs not shipped):
+//   * SpMV. The compact bf16 kernel 59.6 (the f32 plan's 63.0); packed,
+//     42.6. Smaller blocks (128 to 512 threads) and unrolls by 1 or 4 were
+//     slower and are not kept. Then x from shared memory: a ring of 32768
+//     floats a persistent block of 1024 threads, filled ahead with
+//     cp.async.bulk (TMA, 1-D) and two mbarriers, 40.8. The ring bought 4 %:
+//     not kept, for its 128 KB of shared memory, the per-wave windows it
+//     needs from the plan and a second path for operators whose windows pass
+//     it. Staging each block's x span by one bulk copy bought nothing. The
+//     packed stream (30.7 us of bytes), not the gathers, sets the pace.
+//   * SpMM, KC = 16. The compact bf16 kernel 420.2, slower than its f32
+//     twin's 370.8 on fewer bytes. Its SASS (cuobjdump) says why: the bf16
+//     instantiation widens the prefetched next value (IMAD.U32 by 0x10000)
+//     right after its load is issued, before this rank's shuffles and
+//     gathers, so every rank waits for the stream's full latency and the
+//     prefetch buys nothing; the f32 instantiation only moves the loaded
+//     register at the loop's end, and the two count alike instructions.
+//     Packed, widened after the shuffle, one shuffle a row, X still
+//     gathered 4 bytes a lane (one lane a column): 239.9; X gathered 16
+//     bytes a lane: 172.9.
+//
+// Element offsets are 64-bit.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSlice = 32;                 // rows per slice / warp
+constexpr int kPack = 4;                   // ranks per 16-byte load
+constexpr int kThreads = 1024;             // SpMV: 32 slices per block
+constexpr int kSlicesPerBlock = kThreads / kSlice;
+constexpr int kSpmmThreads = 128;          // SpMM: 4 slices per block
+constexpr int kSpmmSlicesPerBlock = kSpmmThreads / kSlice;
+
+// a packed word's value, widened to f32 (exact), and its offset
+__device__ __forceinline__ float value_of(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ uint32_t offset_of(uint32_t w) { return w >> 16; }
+
+__global__ void __launch_bounds__(kThreads)
+wjd_packed_kernel(const uint4* __restrict__ cpack,
+                  const int64_t* __restrict__ slice_ptr,
+                  const int64_t* __restrict__ xbase,
+                  const float* __restrict__ xp, float* __restrict__ y,
+                  int64_t nslices) {
+  const int64_t slice = static_cast<int64_t>(blockIdx.x) * kSlicesPerBlock +
+                        threadIdx.x / kSlice;
+  if (slice >= nslices) return;
+  const int lane = threadIdx.x % kSlice;
+  // slice_ptr counts words; a group of 4 ranks of a slice is 32 uint4
+  const int64_t end = __ldg(slice_ptr + slice + 1) / kPack;
+  const float* __restrict__ xs = xp + __ldg(xbase + slice);
+  float acc = 0.f;
+#pragma unroll 2
+  for (int64_t g = __ldg(slice_ptr + slice) / kPack + lane; g < end;
+       g += kSlice) {
+    const uint4 w = __ldcs(cpack + g);
+    const float x0 = __ldg(xs + offset_of(w.x));
+    const float x1 = __ldg(xs + offset_of(w.y));
+    const float x2 = __ldg(xs + offset_of(w.z));
+    const float x3 = __ldg(xs + offset_of(w.w));
+    acc = fmaf(value_of(w.x), x0, acc);
+    acc = fmaf(value_of(w.y), x1, acc);
+    acc = fmaf(value_of(w.z), x2, acc);
+    acc = fmaf(value_of(w.w), x3, acc);
+  }
+  y[slice * kSlice + lane] = acc;
+}
+
+// one rank of the slice: the word of row i*kRowsPerPass + h, from the lane
+// that owns the row, times 4 columns of X of that row
+template <int KC>
+__device__ __forceinline__ void spmm_rank(uint32_t word, int h,
+                                          const float4* __restrict__ xs,
+                                          float4 (&acc)[KC / 4]) {
+  constexpr int kLanesPerRow = KC / 4;
+  constexpr int kRowsPerPass = kSlice / kLanesPerRow;
+#pragma unroll
+  for (int i = 0; i < kLanesPerRow; ++i) {
+    const uint32_t wi = __shfl_sync(0xffffffffu, word, i * kRowsPerPass + h);
+    const float v = value_of(wi);
+    const float4 xv = __ldg(xs + offset_of(wi) * kLanesPerRow);
+    acc[i].x = fmaf(v, xv.x, acc[i].x);
+    acc[i].y = fmaf(v, xv.y, acc[i].y);
+    acc[i].z = fmaf(v, xv.z, acc[i].z);
+    acc[i].w = fmaf(v, xv.w, acc[i].w);
+  }
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kSpmmThreads)
+wjd_packed_spmm_kernel(const uint4* __restrict__ cpack,
+                       const int64_t* __restrict__ slice_ptr,
+                       const int64_t* __restrict__ xbase,
+                       const float* __restrict__ xp, float* __restrict__ y,
+                       int64_t nslices) {
+  constexpr int kLanesPerRow = KC / 4;     // lanes across a row's columns
+  constexpr int kRowsPerPass = kSlice / kLanesPerRow;
+  const int64_t slice =
+      static_cast<int64_t>(blockIdx.x) * kSpmmSlicesPerBlock +
+      threadIdx.x / kSlice;
+  if (slice >= nslices) return;            // uniform over the warp
+  const int lane = threadIdx.x % kSlice;
+  const int h = lane / kLanesPerRow;       // which row of a pass
+  const int c = lane % kLanesPerRow;       // which 4 columns
+  const float4* __restrict__ xs =
+      reinterpret_cast<const float4*>(xp + __ldg(xbase + slice) * KC) + c;
+  float4 acc[kLanesPerRow];
+#pragma unroll
+  for (int i = 0; i < kLanesPerRow; ++i)
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the next 4 ranks are loaded before this group's gathers of X are issued
+  const int64_t end = __ldg(slice_ptr + slice + 1) / kPack;
+  int64_t g = __ldg(slice_ptr + slice) / kPack + lane;
+  uint4 w_next = g < end ? __ldcs(cpack + g) : make_uint4(0u, 0u, 0u, 0u);
+  for (; g < end; g += kSlice) {
+    const uint4 w = w_next;
+    if (g + kSlice < end) w_next = __ldcs(cpack + g + kSlice);
+    spmm_rank<KC>(w.x, h, xs, acc);
+    spmm_rank<KC>(w.y, h, xs, acc);
+    spmm_rank<KC>(w.z, h, xs, acc);
+    spmm_rank<KC>(w.w, h, xs, acc);
+  }
+
+  float4* __restrict__ ys =
+      reinterpret_cast<float4*>(y + slice * kSlice * KC) + c;
+#pragma unroll
+  for (int i = 0; i < kLanesPerRow; ++i)
+    ys[(i * kRowsPerPass + h) * kLanesPerRow] = acc[i];
+}
+
+struct PackedArgs {
+  const void *cpack, *slice_ptr, *xbase, *xp;
+  void* y;
+  int64_t nslices;
+  void* stream;
+};
+
+template <int KC>
+int go_spmm(const PackedArgs& a) {
+  const int64_t blocks =
+      (a.nslices + kSpmmSlicesPerBlock - 1) / kSpmmSlicesPerBlock;
+  wjd_packed_spmm_kernel<KC>
+      <<<static_cast<unsigned>(blocks), kSpmmThreads, 0,
+         static_cast<cudaStream_t>(a.stream)>>>(
+          static_cast<const uint4*>(a.cpack),
+          static_cast<const int64_t*>(a.slice_ptr),
+          static_cast<const int64_t*>(a.xbase),
+          static_cast<const float*>(a.xp), static_cast<float*>(a.y),
+          a.nslices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
+// after the launch: 0 on success. cpack is the packed form's words (16-byte
+// aligned), slice_ptr (nslices + 1 int64, in words) and xbase (nslices
+// int64); xp and y are f32: (xp_len,) and (nslices*32,) for the SpMV,
+// row-major (xp_len, kc) and (nslices*32, kc) for the SpMM, kc 4, 8 or 16.
+extern "C" {
+
+int wjd_spmv_gather_bf16_packed(const void* cpack, const void* slice_ptr,
+                                const void* xbase, const void* xp, void* y,
+                                int64_t nslices, void* stream) {
+  const int64_t blocks = (nslices + kSlicesPerBlock - 1) / kSlicesPerBlock;
+  if (nslices <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wjd_packed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(cpack),
+      static_cast<const int64_t*>(slice_ptr),
+      static_cast<const int64_t*>(xbase), static_cast<const float*>(xp),
+      static_cast<float*>(y), nslices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int wjd_spmm_gather_bf16_packed(const void* cpack, const void* slice_ptr,
+                                const void* xbase, const void* xp, void* y,
+                                int64_t nslices, int kc, void* stream) {
+  if (nslices <= 0 ||
+      (nslices + kSpmmSlicesPerBlock - 1) / kSpmmSlicesPerBlock > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PackedArgs a{cpack, slice_ptr, xbase, xp, y, nslices, stream};
+  switch (kc) {
+    case 4: return go_spmm<4>(a);
+    case 8: return go_spmm<8>(a);
+    case 16: return go_spmm<16>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -25,7 +25,7 @@ from .hyb import HYB
 from .mcsr import MCSR
 from .stencil import Stencil
 from .wjd import (TILE, WJD, ComplexWJD, compact_entries,
-                  from_csr as _wjd_from_csr)
+                  from_csr as _wjd_from_csr, unpack_bf16_slices)
 
 FORMATS = {
     "CSR": CSR,
@@ -43,6 +43,16 @@ FORMATS = {
 def _coo_of(csr: CSR):
     """Host (rows, cols, vals) of a CSR."""
     return csr.numpy_rows(), get_host(csr, "indices"), get_host(csr, "data")
+
+
+def _host_values(mat, name: str) -> np.ndarray:
+    """`get_host` of a value array; a bfloat16 one comes back as f32
+    holding the same values (exact), the port's host form of bfloat16:
+    numpy has no bfloat16."""
+    t = getattr(mat, name)
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
+    return get_host(mat, name)
 
 
 def to_csr(mat) -> CSR:
@@ -118,14 +128,22 @@ def to_csr(mat) -> CSR:
     if isinstance(mat, WJD):
         # rebuild COO from the slot planes, or from the compact slice form
         # where a gather-mode plan carries no planes (explicit zeros are
-        # dropped, as in every padded-format round trip)
+        # dropped, as in every padded-format round trip). A bfloat16 plan
+        # gives a bfloat16 CSR, as in the JAX package; its host copy holds
+        # the values in f32 (`_host_values`)
         if mat.data is None:
-            rows, xoff, slot_vals = compact_entries(*(
-                get_host(mat, f) for f in ("cval", "coff", "slice_ptr",
-                                           "xbase")))
+            fields = ("slice_ptr", "xbase")
+            if mat.cpack is not None:      # the packed form of a bf16 plan
+                c = unpack_bf16_slices(*(get_host(mat, f)
+                                         for f in ("cpack",) + fields))
+                form = tuple(c[f] for f in ("cval", "coff") + fields)
+            else:
+                form = (_host_values(mat, "cval"),
+                        *(get_host(mat, f) for f in ("coff",) + fields))
+            rows, xoff, slot_vals = compact_entries(*form)
             cols = xoff - mat.pad_lo
         else:
-            val = get_host(mat, "data")
+            val = _host_values(mat, "data")
             brow = get_host(mat, "brow").astype(np.int64)
             tt, kk, ss, ll = np.nonzero(val)
             if mat.uloc is None:                          # roll mode
@@ -138,15 +156,20 @@ def to_csr(mat) -> CSR:
             slot_vals = val[tt, kk, ss, ll]
         rows = np.concatenate([rows, get_host(mat, "spill_row")])
         cols = np.concatenate([cols, get_host(mat, "spill_col")])
-        vals = np.concatenate([slot_vals, get_host(mat, "spill_val")])
+        vals = np.concatenate([slot_vals, _host_values(mat, "spill_val")])
         if mat.dia_data is not None:     # the split-off dense diagonals
-            dia = to_csr(DIA(data=mat.dia_data, offsets=mat.dia_offsets,
-                             shape=mat.shape))
+            dia = to_csr(DIA(data=torch.from_numpy(_host_values(
+                mat, "dia_data")), offsets=mat.dia_offsets, shape=mat.shape))
             dr, dc, dv = _coo_of(dia)
             rows, cols, vals = (np.concatenate([rows, dr]),
                                 np.concatenate([cols, dc]),
                                 np.concatenate([vals, dv]))
-        return build(rows, cols, vals)
+        out = build(rows, cols, vals)
+        if mat.dtype == torch.bfloat16:
+            host = out._host_cache
+            out = dataclasses.replace(out, data=out.data.to(torch.bfloat16))
+            set_host_cache(out, **host)
+        return out
     raise TypeError(f"cannot convert {type(mat).__name__} to CSR")
 
 

@@ -48,6 +48,17 @@ what the direct gather kernels read on the card:
   ``xbase``. The direct kernels read the same
   form through ``xbase``.
 
+A direct (not window-relative) bfloat16 plan whose offsets are uint16
+takes the **packed** form instead (`pack_bf16_slices`, ``cpack``): one
+32-bit word a stored element, the value's bfloat16 bits in its low half
+and its offset in its high half, so that a lane reads 4 ranks of its row
+with one 16-byte load: word (j, lane) of a slice at ``slice_ptr[slice] +
+(j // 4)*128 + lane*4 + j % 4``, a slice's width padded to a multiple of 4
+with zero words. ``slice_ptr`` counts words, ``xbase`` is the compact
+form's, and ``cval``/``coff`` are None. A bfloat16 plan with int32 offsets,
+or a window-relative one, keeps the compact form: the plan's offset width
+and regime choose the form, and the form chooses the kernel.
+
 The padded ``data`` / ``uloc`` planes of a gather-mode plan stay on the
 host only (None on the WJD) unless the WJD lives on the CPU.
 
@@ -67,6 +78,7 @@ from .base import MatrixBase, to_device
 
 TILE = 1024          # rows per tile
 SLICE = 32           # rows per slice of the compact form: one warp
+PACK = 4             # ranks of a row in one 16-byte load of the packed form
 
 
 def _is_bf16(values_dtype) -> bool:
@@ -95,7 +107,8 @@ class WJD(MatrixBase):
     """Windowed jagged-diagonal matrix (see module docstring)."""
 
     # (Tp, K, 8, 128) slot values, f32, f64 or bf16; None where a
-    # gather-mode plan on the card is served from its compact form alone
+    # gather-mode plan on the card is served from its compact (or packed)
+    # form alone
     data: Optional[torch.Tensor]
     brow: torch.Tensor       # (Tp, K) int32 window base row into padded x
     diag_u: torch.Tensor     # (Tp, K) int32: constant u of diagonal slots, -1 else
@@ -126,10 +139,22 @@ class WJD(MatrixBase):
     xbase: Optional[torch.Tensor] = None      # (Tp*32,) int64
     # xbase[slice] is win_base[step of the slice]*128 (module docstring)
     window_relative: bool = False
+    # packed form of a bfloat16 plan (`pack_bf16_slices`): (words,) int32,
+    # bfloat16 bits | offset << 16; slice_ptr then counts words
+    cpack: Optional[torch.Tensor] = None
+
+    @property
+    def _values(self) -> torch.Tensor:
+        """The first value array the plan carries on its device."""
+        if self.data is not None:
+            return self.data
+        return self.cval if self.cpack is None else self.cpack
 
     @property
     def dtype(self) -> torch.dtype:
-        return (self.cval if self.data is None else self.data).dtype
+        if self.data is None and self.cpack is not None:
+            return torch.bfloat16
+        return self._values.dtype
 
     @property
     def x_dtype(self) -> torch.dtype:
@@ -139,7 +164,7 @@ class WJD(MatrixBase):
 
     @property
     def device(self) -> torch.device:
-        return (self.cval if self.data is None else self.data).device
+        return self._values.device
 
     @property
     def padding_ratio(self) -> float:
@@ -147,10 +172,20 @@ class WJD(MatrixBase):
         return Tp * K * TILE / max(self.nnz, 1)
 
     @property
+    def compact_form(self) -> Optional[str]:
+        """Which form the gather kernels read: "packed", "compact", or
+        None for a roll-mode plan."""
+        if self.cpack is not None:
+            return "packed"
+        return None if self.cval is None else "compact"
+
+    @property
     def compact_padding_ratio(self) -> float:
-        """Elements of the compact slice form over the entries held by
-        slots and spill (`padding_ratio`'s denominator)."""
-        return self.cval.numel() / max(self.nnz, 1)
+        """Stored elements of the compact slice form (words of the packed
+        form) over the entries held by slots and spill (`padding_ratio`'s
+        denominator)."""
+        stored = self.cval if self.cpack is None else self.cpack
+        return stored.numel() / max(self.nnz, 1)
 
 
 # per-slot kernel cost model (ns, v5e-measured): base + gathers; spilled
@@ -706,15 +741,86 @@ def compact_entries(cval, coff, slice_ptr, xbase):
             cval[p])
 
 
+def pack_bf16_slices(compact: dict) -> dict:
+    """The packed form (module docstring) of the compact slice form of a
+    bfloat16 plan whose offsets are uint16: numpy arrays ``cpack`` (uint32
+    words, the value's bfloat16 bits | offset << 16), ``slice_ptr`` (in
+    words) and ``xbase``. A row's terms keep their ranks, so a row sums
+    the same terms in the same order, plus up to 3 zero words. The values
+    are the plan's host form of bfloat16 (f32 arrays holding bfloat16
+    values), whose low 16 bits are zero."""
+    cval, coff, ptr = compact["cval"], compact["coff"], compact["slice_ptr"]
+    if cval.dtype != np.float32 or coff.dtype != np.uint16:
+        raise ValueError(f"the packed form takes f32-held bfloat16 values "
+                         f"and uint16 offsets, got {cval.dtype}, "
+                         f"{coff.dtype}")
+    bits = np.ascontiguousarray(cval).view(np.uint32)
+    if (bits & 0xFFFF).any():
+        raise ValueError("the packed form takes values that bfloat16 holds")
+    width = np.diff(ptr) // SLICE
+    pptr = np.zeros_like(ptr)
+    np.cumsum(-(-width // PACK) * (PACK * SLICE), out=pptr[1:])
+    per_slice = width * SLICE
+    # element p of a slice at p0 + j*32 + lane goes to word
+    # pp0 + (j // 4)*128 + lane*4 + j % 4
+    r = np.arange(len(cval), dtype=np.int64) - np.repeat(ptr[:-1], per_slice)
+    j, lane = r >> 5, r & (SLICE - 1)
+    dest = np.repeat(pptr[:-1], per_slice) + ((j >> 2) << 7) + (lane << 2) \
+        + (j & (PACK - 1))
+    cpack = np.zeros(int(pptr[-1]), np.uint32)
+    cpack[dest] = (bits >> 16) | (coff.astype(np.uint32) << 16)
+    return dict(cpack=cpack, slice_ptr=pptr, xbase=compact["xbase"])
+
+
+def unpack_bf16_slices(cpack, slice_ptr, xbase) -> dict:
+    """The compact slice form (``cval`` as f32-held bfloat16 values,
+    ``coff`` uint16, ``slice_ptr``, ``xbase``) that `pack_bf16_slices`
+    packed, from numpy arrays of the packed form. A slice's width is its
+    highest rank with a nonzero value plus one: the compact form stores
+    nonzero values only, and its longest row fills its last rank."""
+    cpack = np.asarray(cpack).view(np.uint32)
+    pptr = np.asarray(slice_ptr, np.int64)
+    q = np.arange(len(cpack), dtype=np.int64)
+    sl = np.repeat(np.arange(len(pptr) - 1), np.diff(pptr))
+    r = q - pptr[:-1][sl]
+    j = ((r >> 7) << 2) + (r & (PACK - 1))               # rank of word q
+    width = np.zeros(len(pptr) - 1, np.int64)
+    used = np.diff(pptr) > 0
+    if used.any():
+        width[used] = np.maximum.reduceat(
+            np.where(cpack & 0xFFFF, j + 1, 0), pptr[:-1][used])
+    ptr = np.zeros_like(pptr)
+    np.cumsum(width * SLICE, out=ptr[1:])
+    keep = j < width[sl]
+    lane = (r >> 2) & (SLICE - 1)
+    pos = ptr[:-1][sl[keep]] + j[keep] * SLICE + lane[keep]
+    cval = np.zeros(int(ptr[-1]), np.uint32)
+    coff = np.zeros(int(ptr[-1]), np.uint16)
+    cval[pos] = cpack[keep] << 16
+    coff[pos] = cpack[keep] >> 16
+    return dict(cval=cval.view(np.float32), coff=coff, slice_ptr=ptr,
+                xbase=np.asarray(xbase, np.int64))
+
+
+def _packs(plan: dict, compact: dict) -> bool:
+    """Does this plan take the packed form? A bfloat16 plan on the direct
+    kernels whose compact offsets are uint16 (module docstring)."""
+    return (plan.get("value_dtype") == "bfloat16"
+            and not compact["window_relative"]
+            and compact["coff"].dtype == np.uint16)
+
+
 def _check_compact_reach(compact: dict, xp_len: int) -> None:
-    """Raise ValueError unless every load xbase[slice] + coff of the compact
-    form lies in [0, xp_len): the CUDA kernels read x without bounds
-    checks."""
+    """Raise ValueError unless every load xbase[slice] + offset of the
+    compact or the packed form lies in [0, xp_len): the CUDA kernels read
+    x without bounds checks."""
     ptr, xbase = compact["slice_ptr"], compact["xbase"]
-    if not len(compact["coff"]):
+    off = (compact["cpack"] >> 16 if "cpack" in compact
+           else compact["coff"])
+    if not len(off):
         return
     full = np.diff(ptr) > 0
-    off, starts = compact["coff"].astype(np.int64), ptr[:-1][full]
+    off, starts = off.astype(np.int64), ptr[:-1][full]
     lowest = int((xbase[full] + np.minimum.reduceat(off, starts)).min())
     deepest = int((xbase[full] + np.maximum.reduceat(off, starts)).max())
     if lowest < 0 or deepest >= int(xp_len):
@@ -778,8 +884,9 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     array), after checking that no slot load leaves padded x or, where
     the plan has per-step windows, its step's window. A gather-mode plan
     is compacted here (`compact_slices`), window-relative where the
-    windowed gather kernel will serve it; its padded planes go along only
-    to the CPU."""
+    windowed gather kernel will serve it, packed where it is a bfloat16
+    plan with uint16 offsets on the direct kernels (`pack_bf16_slices`);
+    its padded planes go along only to the CPU."""
     if np.asarray(plan["brow"]).size:
         reach = _slot_reach(plan)
         _check_x_reach(plan, reach)
@@ -794,9 +901,12 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         compact = compact_slices(plan, window_relative=_window_regime(
             plan.get("win_base") is not None, int(plan["xp_len"]), "gather",
             vdt.itemsize, vdt == np.float32))
-        _check_compact_reach(compact, plan["xp_len"])
         if compact["window_relative"]:
             _check_compact_windows(compact, plan)
+        elif _packs(plan, compact):
+            compact = {**pack_bf16_slices(compact), "cval": None,
+                       "coff": None, "window_relative": False}
+        _check_compact_reach(compact, plan["xp_len"])
         plan = {**plan, **compact}
         if torch.device(device).type != "cpu":
             skip = ("data", "uloc")
@@ -811,6 +921,8 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     return WJD(
         cval=put("cval"),
         coff=put("coff"),
+        cpack=(None if plan.get("cpack") is None
+               else to_device(plan["cpack"].view(np.int32), device)),
         slice_ptr=put("slice_ptr", np.int64),
         xbase=put("xbase", np.int64),
         window_relative=bool(plan.get("window_relative", False)),

@@ -14,7 +14,14 @@ kernels are templated CUDA kernels in three sources here:
   (`WJD.window_relative`);
 * ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
   16 columns a launch, lanes across the columns; gather mode on the
-  compact form, roll mode on the slot planes.
+  compact form, roll mode on the slot planes;
+* ``csrc/wjd_bf16_packed.cu``: the direct gather kernels of a bfloat16
+  plan with 2-byte offsets (`_kernel` and `_kernel_mrhs` on bfloat16
+  values), single and blocked, over the packed form
+  (formats/wjd.py:`pack_bf16_slices`); they count as ``gather_bf16`` and
+  ``spmm_gather_bf16``. The compact bf16 kernels of the first two sources
+  serve a bfloat16 plan with 4-byte offsets or a window-relative one, and
+  count as ``gather_bf16_compact`` and ``spmm_gather_bf16_compact``.
 
 See those files for the designs. The wrappers pad x, launch on the current
 stream, add the COO spill and the DIA part, and trim to n.
@@ -52,7 +59,8 @@ launches = {
     "spmm_roll_f64": 0, "spmm_gather_f64": 0, "spmm_roll_f32": 0,
     "spmm_gather_f32": 0, "roll_bf16": 0, "gather_bf16": 0,
     "win_roll_bf16": 0, "win_gather_bf16": 0, "spmm_roll_bf16": 0,
-    "spmm_gather_bf16": 0,
+    "spmm_gather_bf16": 0, "gather_bf16_compact": 0,
+    "spmm_gather_bf16_compact": 0,
 }
 
 # columns one SpMM launch serves; the kernel is instantiated for these
@@ -84,6 +92,9 @@ _COMPACT_TAILS = {"spmv": ("spmv_wjd", "", [_P, _P, _I64, _P]),
 # wjd_spmv_win_gather_{f32,bf16}: cval, coff, coff_bytes, slice_ptr,
 # win_base, xp, y, nsteps, slices a step, stream
 _WIN_COMPACT_ARGS = [_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _P]
+# the packed bf16 gather kernels: cpack, slice_ptr, xbase, then the tail
+# of the compact ones, and the same counters
+_PACKED_ARGS = [_P, _P, _P]
 
 
 def build() -> None:
@@ -127,12 +138,23 @@ def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
 
 
 def _launch_compact(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
-    """Launch gather kernel wjd_<family>_gather_<tag> on the compact form."""
+    """Launch gather kernel wjd_<family>_gather_<tag> on the compact form,
+    counted as <family prefix>gather_<tag> (with "_compact" after "bf16"),
+    or wjd_<family>_gather_bf16_packed on the packed form, counted as
+    <family prefix>gather_bf16."""
     lib, prefix, tail = _COMPACT_TAILS[family]
-    _call(lib, f"wjd_{family}_gather_{tag}", _COMPACT_ARGS + tail,
-          f"{prefix}gather_{tag}", xp, A.cval.data_ptr(), A.coff.data_ptr(),
-          A.coff.element_size(), A.slice_ptr.data_ptr(), A.xbase.data_ptr(),
-          *args)
+    counter = f"{prefix}gather_{tag}"
+    if A.cpack is not None:
+        _call("wjd_bf16_packed", f"wjd_{family}_gather_bf16_packed",
+              _PACKED_ARGS + tail, counter, xp, A.cpack.data_ptr(),
+              A.slice_ptr.data_ptr(), A.xbase.data_ptr(), *args)
+        return
+    if tag == "bf16":
+        counter += "_compact"
+    _call(lib, f"wjd_{family}_gather_{tag}",
+          _COMPACT_ARGS + tail, counter, xp, A.cval.data_ptr(),
+          A.coff.data_ptr(), A.coff.element_size(), A.slice_ptr.data_ptr(),
+          A.xbase.data_ptr(), *args)
 
 
 def pad_x(A: WJD, x: torch.Tensor, cols: int = 0) -> torch.Tensor:
@@ -240,6 +262,39 @@ def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     return _compact_product(A, xp, A.xbase)
 
 
+def _packed_product(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Word q of slice i (formats/wjd.py:`pack_bf16_slices`) holds a
+    bfloat16 value in its low half and an offset in its high half; it
+    multiplies xp[xbase[i] + offset] and adds to row i*32 + (q // 4) % 32
+    (every slice starts at a multiple of 128 words). The value widens to
+    f32 exactly. xp is (xp_len,) or row-major (xp_len, kc); returns
+    (nslices*32,) or (nslices*32, kc)."""
+    nslices = A.xbase.numel()
+    dev = xp.device
+    sl = torch.repeat_interleave(torch.arange(nslices, device=dev),
+                                 A.slice_ptr.diff())
+    q = torch.arange(A.cpack.numel(), device=dev)
+    row = sl * SLICE + ((q >> 2) & (SLICE - 1))
+    w = A.cpack
+    val = ((w & 0xFFFF) << 16).view(torch.float32)
+    xg = xp[A.xbase[sl] + ((w >> 16) & 0xFFFF)]
+    prod = val.view(-1, *([1] * (xp.dim() - 1))) * xg
+    return xp.new_zeros((nslices * SLICE,) + tuple(xp.shape[1:])).index_add_(
+        0, row, prod)
+
+
+def slots_plain_packed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """Plain product over the packed form of a bfloat16 plan (f32 products
+    of the widened values, summed in f32); returns (Tp, 8, 128)."""
+    return _packed_product(A, xp).view(-1, 8, 128)
+
+
+def slots_plain_packed_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """`slots_plain_packed` on the row-major (xp_len, kc) padded X at once;
+    returns (Tp*1024, kc)."""
+    return _packed_product(A, xp)
+
+
 def _check_window_relative(A: WJD) -> None:
     if not A.window_relative:
         raise ValueError("the windowed gather product takes the window-"
@@ -268,9 +323,9 @@ def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
     """Raise unless the kernels take these operands (the plan's slot
-    planes, or its compact slice form); return the value type's tag. The
-    plan's own tensors do not change, so they are checked once per plan
-    and form; xp is checked every call."""
+    planes, or its compact or packed slice form); return the value type's
+    tag. The plan's own tensors do not change, so they are checked once
+    per plan and form; xp is checked every call."""
     tag = _DTYPE_TAG.get(A.dtype)
     if tag is None or xp.dtype != A.x_dtype:
         raise TypeError(f"WJD kernel takes f64 or f32 values with x of the "
@@ -288,7 +343,17 @@ def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
 
 
 def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
-    if compact:
+    if compact and A.cpack is not None:
+        operands = [A.cpack, A.slice_ptr, A.xbase]
+        if (A.kernel_mode != "gather" or A.window_relative
+                or A.dtype != torch.bfloat16):
+            raise ValueError("the packed kernels take a direct gather-mode "
+                             "WJD with bfloat16 values")
+        if A.cpack.dtype != torch.int32:
+            raise TypeError("packed WJD words must be int32")
+        if A.cpack.data_ptr() % 16:
+            raise ValueError("packed WJD words must be 16-byte aligned")
+    elif compact:
         operands = [A.cval, A.coff, A.slice_ptr, A.xbase]
         if A.kernel_mode != "gather" or any(t is None for t in operands):
             raise ValueError("the compact kernels take a gather-mode WJD "
@@ -296,12 +361,13 @@ def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
         if A.coff.dtype not in _COFF_DTYPES or A.cval.dtype != A.dtype:
             raise TypeError("compact WJD offsets must be uint16/int32 and "
                             "its values of the plan's dtype")
+    if compact:
         if (A.slice_ptr.dtype != torch.int64 or A.xbase.dtype != torch.int64):
             raise TypeError("compact WJD slice_ptr/xbase must be int64")
         Tp = A.brow.shape[0]
         if (A.xbase.numel() != Tp * (TILE // SLICE)
                 or A.slice_ptr.numel() != A.xbase.numel() + 1
-                or A.coff.shape != A.cval.shape):
+                or (A.cpack is None and A.coff.shape != A.cval.shape)):
             raise ValueError("compact WJD arrays do not match the plan's "
                              f"{Tp} tiles")
     else:
@@ -326,7 +392,8 @@ def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
 
 def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Slot product through the direct kernel (CUDA tensors only): over the
-    slot planes in roll mode, over the compact form in gather mode."""
+    slot planes in roll mode, over the compact or the packed form in
+    gather mode."""
     compact = A.kernel_mode == "gather"
     tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
@@ -376,13 +443,16 @@ def slots_kernel_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Blocked-RHS slot product through the SpMM kernel (CUDA tensors
     only). xp is padded X of 4, 8 or 16 columns, row-major (xp_len, kc);
     the result is (Tp*1024, kc). Roll mode reads the slot planes, gather
-    mode the compact form."""
+    mode the compact or the packed form."""
     compact = A.kernel_mode == "gather"
     tag = _check_operands(A, xp, compact)
     kc = xp.shape[1] if xp.dim() == 2 else 0
     if kc not in _MRHS_WIDTHS or tuple(xp.shape) != (A.xp_len, kc):
         raise ValueError(f"padded X must have {_MRHS_WIDTHS} columns of "
                          f"{A.xp_len} rows, got {tuple(xp.shape)}")
+    if A.cpack is not None and xp.data_ptr() % 16:
+        raise ValueError("the packed SpMM kernel reads X 16 bytes a lane: "
+                         "padded X must be 16-byte aligned")
     Tp, K = A.brow.shape
     y = torch.empty((Tp * TILE, kc), dtype=xp.dtype, device=xp.device)
     if compact:
@@ -452,6 +522,14 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
     return Y
 
 
+def plain_gather(A: WJD, mrhs: bool = False):
+    """The plain version of the direct gather kernel that serves A (single
+    or, with `mrhs`, blocked): over its packed form or its compact form."""
+    if A.cpack is not None:
+        return slots_plain_packed_mrhs if mrhs else slots_plain_packed
+    return slots_plain_compact_mrhs if mrhs else slots_plain_compact
+
+
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
     launches a kernel: the windowed one where the plan is in the windowed
@@ -468,8 +546,7 @@ def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     elif x.is_cuda:
         slots = slots_kernel
     else:
-        slots = (slots_plain_compact if A.kernel_mode == "gather"
-                 else slots_plain)
+        slots = plain_gather(A) if gather else slots_plain
     return _apply(A, x, slots)
 
 
@@ -481,7 +558,7 @@ def wjd_spmm(A: WJD, X: torch.Tensor) -> torch.Tensor:
     if X.is_cuda:
         slots = slots_kernel_mrhs
     else:
-        slots = (slots_plain_compact_mrhs if A.kernel_mode == "gather"
+        slots = (plain_gather(A, mrhs=True) if A.kernel_mode == "gather"
                  else slots_plain_mrhs)
     return _apply_mrhs(A, X, slots)
 
@@ -523,23 +600,25 @@ def cwjd_reference(C: ComplexWJD, x: torch.Tensor) -> torch.Tensor:
 def wjd_reference(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch WJD product on any device, for x of shape (m,) or
     (m, k): gather + sum over the padded slots wherever the WJD carries its
-    slot planes, else over the compact form."""
+    slot planes, else over the compact or the packed form."""
     padded = A.data is not None
     if x.dim() == 1:
-        return _apply(A, x, slots_plain if padded else slots_plain_compact)
+        return _apply(A, x, slots_plain if padded else plain_gather(A))
     return _apply_mrhs(A, x, slots_plain_mrhs if padded
-                       else slots_plain_compact_mrhs)
+                       else plain_gather(A, mrhs=True))
 
 
 def slot_bytes(A: WJD, compact: bool = False,
                through_windows: bool = False) -> int:
     """Operand bytes one kernel call streams from the plan: slot values
     with brow and diag_u (roll mode), or the compact form's values,
-    offsets, slice_ptr and xbase (the windowed gather kernel reads
-    win_base in place of xbase)."""
+    offsets, slice_ptr and xbase, or the packed form's words, slice_ptr
+    and xbase (the windowed gather kernel reads win_base in place of
+    xbase)."""
     if compact:
         base = A.win_base if through_windows else A.xbase
+        stored = (A.cval, A.coff) if A.cpack is None else (A.cpack,)
         return sum(t.numel() * t.element_size()
-                   for t in (A.cval, A.coff, A.slice_ptr, base))
+                   for t in (*stored, A.slice_ptr, base))
     Tp, K = A.brow.shape
     return Tp * K * (TILE * A.dtype.itemsize + 2 * 4)

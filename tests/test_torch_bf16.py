@@ -39,6 +39,7 @@ from rocalution_tpu_torch.formats.wjd import from_csr
 from rocalution_tpu_torch.interop import wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = "bfloat16"
 GENERATORS = {
@@ -76,6 +77,11 @@ def small_budget(monkeypatch, one_tile_steps):
     """The windowed regime on small operators, in both packages."""
     for mod in (jax_wjd, torch_wjd):
         monkeypatch.setattr(mod, "X_VMEM_BUDGET", 1024)
+
+
+def _bf16_as_f32(a: np.ndarray) -> np.ndarray:
+    """An ml_dtypes bfloat16 array as f32, by its bits (exact)."""
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -364,3 +370,34 @@ def test_bf16_plan_from_the_cached_plan_of_its_values(tmp_path, monkeypatch,
             np.testing.assert_array_equal(got, want, err_msg=key)
         else:
             assert got == want, key
+
+
+@pytest.mark.parametrize("form", ["planes", "packed", "roll"])
+def test_to_csr_of_a_bf16_plan_is_jax_s(form, products):
+    """to_csr of a bfloat16 WJD (the slot planes on the CPU, the packed
+    form a plan on the card carries alone, a roll plan) gives the JAX
+    package's CSR: the same pattern, bfloat16 values, and those values bit
+    for bit (the port's host copy holds them in f32: numpy has no
+    bfloat16). The spill is included."""
+    from rocalution_tpu.formats.convert import to_csr as jax_to_csr
+    from rocalution_tpu_torch.formats.convert import to_csr
+
+    name = "lap3d_12" if form == "roll" else "randband_3000"
+    kw = (dict(kernel_mode="roll", split_dia=False, max_slots=3)
+          if form == "roll" else dict(split_dia=False, max_slots=4))
+    Aj, At = products[name]
+    W = from_csr(At, values_dtype=BF16, **kw)
+    assert len(W.spill_row) > 0
+    if form == "packed":
+        assert W.compact_form == "packed"
+        W = dataclasses.replace(W, data=None, uloc=None)
+    C = to_csr(W)
+    d, i, p = C.numpy_triplet()
+    dj, ij, pj = jax_to_csr(jax_from_csr(Aj, cache=False, values_dtype=BF16,
+                                         **kw)).numpy_triplet()
+    assert dj.dtype.name == BF16 and C.data.dtype == torch.bfloat16
+    assert d.dtype == np.float32
+    np.testing.assert_array_equal(C.data.float().numpy(), d)
+    np.testing.assert_array_equal(p, pj)
+    np.testing.assert_array_equal(i, ij)
+    np.testing.assert_array_equal(d, _bf16_as_f32(dj))

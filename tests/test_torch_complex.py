@@ -37,6 +37,7 @@ from rocalution_tpu.ops.spmv import spmv as jax_spmv
 from rocalution_tpu_torch.interop import matrix_from_numpy
 from test_torch_krylov import _assert_history_close
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {np.complex64: 2e-5, np.complex128: 1e-13}
 HIST_RTOL = 1e-10

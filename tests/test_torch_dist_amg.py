@@ -31,6 +31,7 @@ import rocalution_tpu_torch.parallel.amg_setup as tas
 from rocalution_tpu_torch.parallel.partition import ARRAY_FIELDS
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NP = 4
 N2 = 24                      # laplacian_2d(24): 576 rows

@@ -22,6 +22,7 @@ from rocalution_tpu.formats.convert import cast_values as jax_cast_values
 from rocalution_tpu_torch.interop import matrix_from_numpy
 from rocalution_tpu_torch.ops.spmv import as_operator, maybe_attach_wjd
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FORMATS = ["CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE"]
 RTOL = 1e-13

@@ -32,6 +32,7 @@ import torch
 
 import rocalution_tpu_torch as rt
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

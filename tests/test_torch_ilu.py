@@ -31,6 +31,7 @@ from rocalution_tpu.precond import itilu0 as jax_itilu0
 from rocalution_tpu_torch.ops import factorize, ordering, trisolve
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

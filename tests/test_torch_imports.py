@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import rocalution_tpu_torch as rt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PKG = pathlib.Path(rt.__file__).resolve().parent
 ROOT = PKG.parent

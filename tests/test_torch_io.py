@@ -32,6 +32,7 @@ import rocalution_tpu_torch.formats.wjd as torch_wjd
 from rocalution_tpu_torch.formats import wjd_cache
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 

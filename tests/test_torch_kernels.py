@@ -20,6 +20,7 @@ import rocalution_tpu_torch as rt
 import rocalution_tpu_torch.formats.wjd as wjd_mod
 from rocalution_tpu_torch.formats.wjd import from_csr, windowed
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -685,7 +686,7 @@ def test_bf16_kernel_matches_plain_version(cuda_device, key, monkeypatch):
                  else kernels.slots_plain_windowed)
     else:
         launch = kernels.slots_kernel
-        plain = kernels.slots_plain_compact if gather else kernels.slots_plain
+        plain = (kernels.plain_gather(W) if gather else kernels.slots_plain)
     x = _x(W.shape[1], torch.float32, cuda_device)
     xp = kernels.pad_x(W, x)
     before = kernels.launches[key]
@@ -708,7 +709,7 @@ def test_bf16_kernel_matches_plain_version(cuda_device, key, monkeypatch):
 def test_bf16_spmm_kernel_matches_plain_version(cuda_device, key, kc,
                                                 monkeypatch):
     W = _bf16_plan(key, monkeypatch)
-    plain = (kernels.slots_plain_compact_mrhs if W.kernel_mode == "gather"
+    plain = (kernels.plain_gather(W, mrhs=True) if W.kernel_mode == "gather"
              else kernels.slots_plain_mrhs)
     X = _x(W.shape[1] * kc, torch.float32, cuda_device).view(-1, kc)
     xp = kernels.pad_x(W, X, kc)
@@ -735,13 +736,15 @@ def test_bf16_plan_on_cuda_never_takes_the_plain_version(cuda_device,
     A = rt.random_banded_spd(3000, bandwidth=512, dtype=np.float32,
                              device=cuda_device)
     rt.attach_wjd(A, values_dtype="bfloat16")
+    assert A._wjd_cache.compact_form == "packed"
 
     def refuse(*args):
         raise AssertionError("a plain version ran on the card")
 
     for name in ("slots_plain", "slots_plain_compact", "slots_plain_windowed",
                  "slots_plain_compact_windowed", "slots_plain_mrhs",
-                 "slots_plain_compact_mrhs"):
+                 "slots_plain_compact_mrhs", "slots_plain_packed",
+                 "slots_plain_packed_mrhs"):
         monkeypatch.setattr(kernels, name, refuse)
     before = dict(kernels.launches)
     x = _x(A.shape[1], torch.float32, cuda_device)
@@ -756,6 +759,103 @@ def test_bf16_plan_on_cuda_never_takes_the_plain_version(cuda_device,
     assert int(info.status) == 2 and got == 2 + int(info.iterations) + 1
     assert rt.spmv(A, x.double()).dtype == torch.float64
     assert kernels.launches["gather_bf16"] - before["gather_bf16"] == got
+
+
+def _ragged_rows():
+    """3,000 rows of 0 to 37 entries (every slice width mod 4, empty
+    slices, a ragged last tile), columns within 1,500 of the row."""
+    rng = np.random.default_rng(11)
+    lens = rng.integers(0, 38, 3000)
+    lens[1024:1120] = 0
+    rows = np.repeat(np.arange(3000), lens)
+    cols = np.clip(rows + rng.integers(-1500, 1500, len(rows)), 0, 2999)
+    S = sp.csr_matrix((rng.standard_normal(len(rows)).astype(np.float32),
+                       (rows, cols)), shape=(3000, 3000))
+    S.sum_duplicates()
+    S.sort_indices()
+    return rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
+                              S.indptr.astype(np.int32), S.shape,
+                              device="cpu")
+
+
+BF16_GATHER = {
+    # name: (operator on the CPU, planner kwargs, form the plan takes)
+    "band_packed": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"),
+        {"split_dia": False}, "packed"),
+    "band_spill_packed": (lambda: rt.random_banded_spd(
+        3000, bandwidth=512, dtype=np.float32, device="cpu"),
+        {"split_dia": False, "max_slots": 4}, "packed"),
+    "ragged_packed": (_ragged_rows, {"split_dia": False,
+                                     "kernel_mode": "gather"}, "packed"),
+    "wide_compact_i32": (lambda: _wide_rows(np.float32),
+                         {"split_dia": False}, "compact"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_GATHER))
+def test_bf16_gather_kernels_on_each_form(cuda_device, name):
+    """The direct bf16 gather kernels, single and blocked (KC 4, 8, 16),
+    on the form the plan takes: packed (2-byte offsets; ragged widths,
+    empty slices, a ragged last tile, a spill) or compact (4-byte
+    offsets). Each against the plain version over its form and the padded
+    slot product, counted as its form's kernel; a column of a blocked
+    product is the single product bit for bit; rt.spmv on 20 columns
+    launches twice (16 + 4) and agrees."""
+    make, kw, form = BF16_GATHER[name]
+    W = _on_card(from_csr(make(), values_dtype="bfloat16", **kw))
+    assert W.compact_form == form and W.data is not None
+    key = "gather_bf16" if form == "packed" else "gather_bf16_compact"
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = dict(kernels.launches)
+    y = kernels.slots_kernel(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, key: before[key] + 1}
+    assert _rel(y, kernels.plain_gather(W)(W, xp)) <= tol
+    assert _rel(y, kernels.slots_plain(W, xp)) <= tol
+    for kc in (4, 8, 16):
+        X = _x(W.shape[1] * kc, torch.float32, cuda_device).view(-1, kc)
+        xq = kernels.pad_x(W, X, kc)
+        n0 = kernels.launches[f"spmm_{key}"]
+        Y = kernels.slots_kernel_mrhs(W, xq)
+        torch.cuda.synchronize()
+        assert kernels.launches[f"spmm_{key}"] == n0 + 1
+        assert _rel(Y, kernels.plain_gather(W, mrhs=True)(W, xq)) <= tol
+        assert _rel(Y, kernels.slots_plain_mrhs(W, xq)) <= tol
+        for j in range(kc):
+            assert torch.equal(Y[:, j], kernels.slots_kernel(
+                W, xq[:, j].contiguous()).reshape(-1)), (kc, j)
+    X = _x(W.shape[1] * 20, torch.float32, cuda_device).view(-1, 20)
+    n0 = kernels.launches[f"spmm_{key}"]
+    Y = rt.spmv(W, X)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"spmm_{key}"] == n0 + 2
+    assert tuple(Y.shape) == (W.shape[0], 20)
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= tol
+
+
+def test_packed_kernels_refuse_misaligned_operands(cuda_device):
+    """The packed kernels read 16 bytes a lane: words or a padded X off a
+    16-byte boundary raise before a launch."""
+    W = _on_card(from_csr(BF16_GATHER["band_packed"][0](),
+                          values_dtype="bfloat16", split_dia=False))
+    X = _x(W.shape[1] * 4, torch.float32, cuda_device).view(-1, 4)
+    xq = kernels.pad_x(W, X, 4)
+    off = torch.empty(xq.numel() + 1, dtype=torch.float32,
+                      device=cuda_device)[1:].view(xq.shape)
+    off.copy_(xq)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.slots_kernel_mrhs(W, off)
+    moved = torch.empty(W.cpack.numel() + 1, dtype=torch.int32,
+                        device=cuda_device)[1:]
+    moved.copy_(W.cpack)
+    with pytest.raises(ValueError):
+        kernels.slots_kernel(dataclasses.replace(W, cpack=moved),
+                             kernels.pad_x(W, X[:, 0].contiguous()))
+    assert kernels.launches == before
 
 
 # the preconditioners of the rest of the stack: name -> (operator, build)

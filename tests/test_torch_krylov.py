@@ -39,6 +39,7 @@ import rocalution_tpu_torch as rt
 import rocalution_tpu_torch.formats.wjd as torch_wjd
 from rocalution_tpu.ops.spmv import attach_wjd as jax_attach_wjd
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GENERATORS = {
     "lap": lambda m, dt: m.laplacian_2d(16, dtype=dt),

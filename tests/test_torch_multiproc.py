@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 24

@@ -23,6 +23,7 @@ import pytest
 
 from rocalution_tpu import native as jax_native
 from rocalution_tpu_torch import native
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RACE = ("the JAX package's native build failed, most likely by losing the "
         "race on its shared .so.tmp path to another test process")

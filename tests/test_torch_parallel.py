@@ -40,6 +40,7 @@ from test_torch_cg import one_tile_steps  # noqa: F401
 from test_torch_io import fixed_zip_time  # noqa: F401
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NP = 4
 SOLVERS = ("cg", "cr", "fcg", "bicgstab", "bicgstabl", "gmres", "fgmres",

@@ -24,6 +24,7 @@ from rocalution_tpu_torch.ops import extract
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 from test_torch_precond import _close, on_the_cpu, ops  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _bcsr(m, A):

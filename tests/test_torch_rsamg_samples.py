@@ -19,6 +19,7 @@ from rocalution_tpu_torch.solvers import multigrid as tmg
 from test_torch_native import natives_loaded  # noqa: F401  (autouse)
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 from test_torch_rsamg import on_the_cpu  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

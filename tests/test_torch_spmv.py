@@ -25,6 +25,7 @@ from rocalution_tpu_torch.interop import csr_from_numpy, wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import _build
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ from rocalution_tpu.utils import generators as jgen
 from rocalution_tpu_torch.utils import generators as tgen
 from test_torch_krylov import _assert_history_close
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-14
 

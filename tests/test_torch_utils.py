@@ -22,6 +22,7 @@ import rocalution_tpu_torch as rt
 from rocalution_tpu.utils import key as jax_key
 from rocalution_tpu.utils import validate as jax_validate
 from rocalution_tpu_torch.utils import key, log, profile, validate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ENV = ("ROCALUTION_TPU_TORCH_VERBOSE", "ROCALUTION_TPU_TORCH_DEBUG",
        "ROCALUTION_TPU_TORCH_LOG")

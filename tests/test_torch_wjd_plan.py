@@ -17,6 +17,7 @@ from rocalution_tpu.formats.wjd import csr_to_wjd_plan as jax_plan
 from rocalution_tpu_torch.formats.wjd import csr_to_wjd_plan as torch_plan
 from rocalution_tpu_torch.formats.wjd import from_csr
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

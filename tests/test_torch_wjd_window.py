@@ -37,6 +37,7 @@ from rocalution_tpu_torch.formats.wjd import (_check_compact_windows,
 from rocalution_tpu_torch.interop import wjd_from_numpy
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GENERATORS = {
     "lap2d_30": lambda m, dt: m.laplacian_2d(30, dtype=dt),
