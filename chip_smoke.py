@@ -35,13 +35,14 @@ each went through its kernels:
   M    MixedPrecisionDC: bench.py's mpdc row (3 outer iterations), then
        laplacian_3d(100) f64: the outer residual through the f64 kernel,
        the inner CG through the f32 copy's
-  N    bfloat16 values and the rest of the Krylov family. N1: the eight
+  N    bfloat16 values and the rest of the Krylov family. N1: the eleven
        bf16 kernels on bf16 plans of the f32 operators of C, H and I
-       (direct, blocked right-hand sides, windowed; the direct gather plan
-       in the packed form, then in the compact form with 4-byte offsets,
-       each row naming the form and the kernel), each against its plain
-       version, against the f32 plan's product, its bound and the library
-       call, through rt.spmv. N2: BiCGStab, BiCGStab(2),
+       (direct, blocked right-hand sides, windowed; each gather plan, the
+       direct and the windowed one, in the packed form, then in the
+       compact form with 4-byte offsets, single and 16 columns, each row
+       naming the form and the kernel), each against its plain version,
+       against the f32 plan's product, its bound and the library call,
+       through rt.spmv. N2: BiCGStab, BiCGStab(2),
        QMRCGStab, IDR(4) on convection_diffusion_2d(1024) f64 and CR, FCG,
        the power method and Chebyshev on laplacian_3d(100) f64, through the
        kernels and plain, their launches held to their iterations. N3:
@@ -285,10 +286,10 @@ TPU = "rocalution_tpu/ops/pallas/spmv_wjd.py:"
 # launch counter -> (entry point, source, line of the TPU kernel it replaces:
 # _kernel_roll_ff, _kernel_ff, _kernel_roll, _kernel; _kernel_mrhs;
 # _kernel_roll_ff_hbm, _kernel_roll_hbm, _kernel_hbm). The bf16 entry points
-# replace the same kernels run on bfloat16 values. The direct bf16 gather
-# kernels go by form: gather_bf16 and spmm_gather_bf16 are the packed
-# form's (a bf16 plan with 2-byte offsets), the *_compact pair the compact
-# form's (4-byte offsets, or a window-relative plan).
+# replace the same kernels run on bfloat16 values. The bf16 gather kernels
+# go by form: gather_bf16, spmm_gather_bf16 and win_gather_bf16 are the
+# packed form's (a bf16 plan with 2-byte offsets, direct or windowed), the
+# *_compact rows the compact form's (4-byte offsets).
 KERNELS = {
     "roll_f64": ("wjd_spmv_roll_f64", "spmv_wjd.cu", 206),
     "gather_f64": ("wjd_spmv_gather_f64", "spmv_wjd.cu", 480),
@@ -309,7 +310,10 @@ KERNELS = {
     "gather_bf16_compact": ("wjd_spmv_gather_bf16", "spmv_wjd.cu", 137),
     "spmm_gather_bf16_compact": ("wjd_spmm_gather_bf16", "spmm_wjd.cu", 448),
     "win_roll_bf16": ("wjd_spmv_win_roll_bf16", "spmv_wjd_win.cu", 233),
-    "win_gather_bf16": ("wjd_spmv_win_gather_bf16", "spmv_wjd_win.cu", 310),
+    "win_gather_bf16": ("wjd_spmv_win_gather_bf16_packed",
+                        "wjd_bf16_packed.cu", 310),
+    "win_gather_bf16_compact": ("wjd_spmv_win_gather_bf16",
+                                "spmv_wjd_win.cu", 310),
 }
 TAG = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -981,15 +985,14 @@ class PlanTimer:
 
 def plan_key(W, family=None):
     """The launch counter of the entry point that serves the plan W (a
-    single right-hand side, or `family` "spmm_"); a direct bf16 gather
-    plan's goes by its form (KERNELS)."""
+    single right-hand side, or `family` "spmm_"); a bf16 gather plan's
+    goes by its form (KERNELS)."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     if family is None:
         family = "win_" if windowed(W, W.x_dtype) else ""
     key = f"{family}{W.kernel_mode}_{TAG[W.dtype]}"
-    if family != "win_" and W.dtype == torch.bfloat16 and \
-            W.compact_form == "compact":
+    if W.dtype == torch.bfloat16 and W.compact_form == "compact":
         key += "_compact"
     return key
 
@@ -1737,13 +1740,11 @@ def bf16_row(rt, kernels, totals, tag, A, B, key, made):
                            f"{W.kernel_mode}, windowed {win}, form "
                            f"{W.compact_form}) is not {key}'s")
     gather = W.kernel_mode == "gather"
-    if win:
-        launch = kernels.slots_kernel_windowed
-        plain = (kernels.slots_plain_compact_windowed if gather
-                 else kernels.slots_plain_windowed)
+    launch = kernels.slots_kernel_windowed if win else kernels.slots_kernel
+    if gather:
+        plain = kernels.plain_gather(W)
     else:
-        launch = kernels.slots_kernel
-        plain = kernels.plain_gather(W) if gather else kernels.slots_plain
+        plain = kernels.slots_plain_windowed if win else kernels.slots_plain
     x = random_x(rt, A, torch.float32)
     xp, xp32 = kernels.pad_x(W, x), kernels.pad_x(W32, x)
     max_abs, rel_p = norm_err(launch(W, xp), plain(W, xp), key, BF16_TOL)
@@ -1824,14 +1825,21 @@ def compact_bf16_copy(A, B):
     bf16 plan whose offsets pass 16 bits takes (formats/wjd.py), here at
     the size of the packed plan; the seconds it took. The compact arrays
     are the packed form unpacked on the host (`unpack_bf16_slices`, which
-    gives `compact_slices`' arrays bit for bit)."""
+    gives `compact_slices`' arrays bit for bit); a window-relative plan
+    stays window-relative, and its compact form is held to its step
+    windows as at upload (`_check_compact_windows`)."""
     from rocalution_tpu_torch.formats.base import set_host_cache
-    from rocalution_tpu_torch.formats.wjd import unpack_bf16_slices
+    from rocalution_tpu_torch.formats.wjd import (_check_compact_windows,
+                                                  unpack_bf16_slices)
 
     W = B._wjd_cache
     t0 = time.perf_counter()
     c = unpack_bf16_slices(*(t.cpu().numpy() for t in (
         W.cpack, W.slice_ptr, W.xbase)))
+    if W.window_relative:
+        _check_compact_windows(c, {
+            "win_base": W.win_base.cpu().numpy(), "win_rows": W.win_rows,
+            "group": W.group, "xp_len": W.xp_len})
     dev = W.cpack.device
     Wc = dataclasses.replace(
         W, cpack=None, slice_ptr=torch.from_numpy(c["slice_ptr"]).to(dev),
@@ -1844,39 +1852,47 @@ def compact_bf16_copy(A, B):
 
 
 def phase_n1(rt, kernels, totals, direct, windowed_ops, plans):
-    """The eight bf16 kernels on bf16 plans of f32 operators that earlier
+    """The eleven bf16 kernels on bf16 plans of f32 operators that earlier
     phases built and planned in f32: `direct` {tag: (A, attach_kw)} of C
     and H (one roll, one gather), `windowed_ops` {tag: (A, attach_kw)} of
     I. The bf16 plans go through the plan cache at `plans`, where C and I
     left the f32 plans: each is the f32 plan with its values rounded
-    (formats/wjd.py), so the layout is not planned again. The gather plan
-    takes the packed form (2-byte offsets); its compact form with 4-byte
-    offsets then holds the compact bf16 pair. Returns the kernel rows and
-    the bf16 copies of `direct`."""
+    (formats/wjd.py), so the layout is not planned again. A gather plan
+    takes the packed form (2-byte offsets; window-relative in I's regime);
+    its compact form with 4-byte offsets then holds the compact bf16
+    kernels of the same regime. Each form of a gather plan holds its
+    single product and its SpMM (N_COLS columns; the windowed plan's
+    through xbase, which holds its step windows); a roll plan its single
+    product, and its SpMM where it is direct. Returns the kernel rows (an
+    SpMM's row is the direct plan's; the windowed plan's SpMMs are
+    printed) and the bf16 copies of `direct`."""
     rows, copies = {}, {}
-    for tag, (A, kw) in direct.items():
+    for tag, (A, kw) in {**direct, **windowed_ops}.items():
         with plan_cache(plans):
             B, plan_s = bf16_copy(rt, A, kw)
-        made = f"planned in {plan_s:.1f} s"
-        forms = [(B, made)]
+        win = tag in windowed_ops
+        forms = [(B, f"planned in {plan_s:.1f} s")]
         if B._wjd_cache.compact_form == "packed":
             Bc, unpack_s = compact_bf16_copy(A, B)
             forms.append((Bc, f"its packed plan unpacked, offsets widened, "
                               f"in {unpack_s:.1f} s"))
         for Bf, made in forms:
-            key = plan_key(Bf._wjd_cache)
-            rows.update(bf16_row(rt, kernels, totals, tag, A, Bf, key, made))
-            rows.update(bf16_spmm_row(rt, kernels, totals, tag, A, Bf,
-                                      plan_key(Bf._wjd_cache, "spmm_")))
-        copies[tag] = B
-        del forms
-    for tag, (A, kw) in windowed_ops.items():
-        with plan_cache(plans):
-            B, plan_s = bf16_copy(rt, A, kw)
-        rows.update(bf16_row(rt, kernels, totals, tag, A, B,
-                             f"win_{B._wjd_cache.kernel_mode}_bf16",
-                             f"planned in {plan_s:.1f} s"))
-        del B
+            Wf = Bf._wjd_cache
+            if plan_key(Wf).startswith("win_") != win:
+                raise RuntimeError(f"N1 {tag}: the bf16 plan's kernel "
+                                   f"{plan_key(Wf)} is not in the f32 "
+                                   "plan's regime")
+            rows.update(bf16_row(rt, kernels, totals, tag, A, Bf,
+                                 plan_key(Wf), made))
+            if win and Wf.kernel_mode == "roll":
+                continue
+            spmm = bf16_spmm_row(rt, kernels, totals, tag, A, Bf,
+                                 plan_key(Wf, "spmm_"))
+            if not win:
+                rows.update(spmm)
+        if not win:
+            copies[tag] = B
+        del forms, B
         torch.cuda.empty_cache()
     return rows, copies
 

@@ -4,9 +4,14 @@
 // device memory and copy one (win_rows, 128) window of it per grid step:
 //
 //   wjd_spmv_win_gather_f32  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_hbm
-//   wjd_spmv_win_gather_bf16 the same, on bfloat16 values
+//   wjd_spmv_win_gather_bf16 the same, on bfloat16 values with 4-byte
+//                            offsets (a bfloat16 plan whose window-relative
+//                            offsets fit 16 bits takes the packed form and
+//                            wjd_spmv_win_gather_bf16_packed,
+//                            csrc/wjd_bf16_packed.cu)
 //   wjd_spmv_win_roll_f32    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_hbm
-//   wjd_spmv_win_roll_bf16   the same, on bfloat16 values
+//   wjd_spmv_win_roll_bf16   the same, on bfloat16 values (a kernel of its
+//                            own, wjd_roll_win_bf16_kernel, below)
 //   wjd_spmv_win_roll_f64    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_ff_hbm
 //
 // As in csrc/spmv_wjd.cu, the type V of the values is apart from the type T
@@ -17,8 +22,8 @@
 // only through the window of the tile's grid step. Step i = t / group owns
 // rows [win_base[i], win_base[i] + win_rows) of padded x.
 //
-// Roll mode (wjd_slots_win_kernel) walks the slot planes: element
-// (t, k, s, l) multiplies
+// Roll mode (wjd_slots_win_kernel, f32 and f64) walks the slot planes, one
+// thread a row: element (t, k, s, l) multiplies
 //   xw[(brow[t,k] - win_base[i] + s) * 128 + l + u],  xw = xp + win_base[i]*128.
 // The host checks, when the plan is built, that every such offset lies in
 // [0, win_rows*128) and that the last window ends inside xp
@@ -28,6 +33,33 @@
 // rows, 0.5 MB, at 5.8M rows of a 7-point stencil in f32), more than a
 // block's 227 KB of shared memory, and its loads are contiguous anyway, so
 // this kernel leaves the copy that the TPU kernels make to the cache.
+//
+// Roll mode on bfloat16 values (wjd_roll_win_bf16_kernel). As the f32
+// template's instantiation, one thread a row, it took 83.2 us at 5.8M rows
+// (laplacian_3d(180), 0.46 of its bound, where the f32 one stands at 0.65):
+// a 2-byte value load a slot is a 64-byte warp load, the loop over K waits
+// on the scalar loads of brow and diag_u before its gather of x, and x is
+// read 4 bytes a row a slot, twice the value stream. Now:
+//   * a thread owns 4 consecutive rows of a sublane, which share s and the
+//     slot's offset: their values come in one 8-byte streaming load (a
+//     warp load of 256 bytes), y goes out as one float4;
+//   * their 4 x values are contiguous, at (brow - win_base + s)*128 + l + u
+//     with l a multiple of 4, so aligned to u mod 4, which is uniform over
+//     a slot: one float4 load where u = 0 mod 4, else the two aligned
+//     float4s that hold them and a select (each holds a checked element, so
+//     neither leaves padded x);
+//   * a block owns one tile (256 threads) and stages its slots' offsets
+//     (brow - win_base)*128 + u in shared memory first, 128 at a time, so
+//     no value or x load waits on a dependent scalar load;
+//   * one slot a step: batches of U slots (their loads issued together,
+//     the ragged last batch under a uniform predicate) were slower, since
+//     their registers (64 at U = 4) cut the threads an SM holds, and those
+//     threads, not a thread's own batch, keep the loads in flight;
+//   * each row adds its slots in ascending order with fmaf, as the slot
+//     product does.
+// 58.5 us in place of 80.7 on the same operator, beside 92.8 for the f32
+// kernel (one H100 80GB HBM3 at 700 W, scripts/bf16_win_variants.py; the
+// designs tried, with their times, are listed at the end of this file).
 //
 // Gather mode (wjd_compact_win_kernel) reads the plan's window-relative
 // compact slice form (formats/wjd.py:compact_slices): slices of 32 rows,
@@ -56,10 +88,16 @@
 // Blocks of 1024 threads held to 32 registers, so that two fit an SM, were
 // the fastest shape tried; walking a warp's slices as one stream of ranks,
 // with a single ragged batch a warp, gave the same time for twice the
-// registers and was not kept.
+// registers and was not kept. Its bf16 instantiation serves a bfloat16 plan
+// with 4-byte offsets only: it issues a 2-byte value load, a 2-byte offset
+// load and a gather an element, so load instructions, not bytes, set its
+// pace (188.8 us at 4.2M rows on 2-byte offsets, one H100 80GB HBM3 at
+// 700 W: 61 % of its own stream); the packed form's windowed kernel serves
+// the rest.
 // Element offsets are 64-bit.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -120,6 +158,145 @@ int launch(const void* data, const void* brow, const void* diag_u,
           static_cast<const int32_t*>(diag_u),
           static_cast<const int32_t*>(win_base), static_cast<const T*>(xp),
           static_cast<T*>(y), k, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- roll mode on bfloat16 values: R rows a thread ----
+
+constexpr int kRollRows = 4;               // rows a thread
+constexpr int kRollUnroll = 1;             // slots whose loads go together
+constexpr int kStage = 128;                // slot offsets staged at a time
+
+// R bfloat16 values of R consecutive rows: one load of 2R bytes
+template <int R>
+using RowBits = std::conditional_t<R == 4, uint2, uint32_t>;
+
+template <int R>
+__device__ __forceinline__ void widen_rows(RowBits<R> w, float (&v)[R]) {
+  // bfloat16 is the high half of an f32; the lower address is the low half
+  if constexpr (R == 4) {
+    v[0] = __uint_as_float(w.x << 16);
+    v[1] = __uint_as_float(w.x & 0xffff0000u);
+    v[2] = __uint_as_float(w.y << 16);
+    v[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else {
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// x[0, R) = xr[o, o + R), xr aligned to R floats: one aligned vector load
+// where o = 0 mod R, else the two that hold them and a select (a is
+// uniform over a slot, so the branch is uniform over the block)
+template <int R>
+__device__ __forceinline__ void load_x(const float* __restrict__ xr, int o,
+                                       float (&x)[R]) {
+  const int a = o & (R - 1);
+  const float* __restrict__ q = xr + (o - a);
+  if constexpr (R == 4) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(q));
+    if (a == 0) {
+      x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+      return;
+    }
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(q) + 1);
+    if (a == 1) {
+      x[0] = lo.y; x[1] = lo.z; x[2] = lo.w; x[3] = hi.x;
+    } else if (a == 2) {
+      x[0] = lo.z; x[1] = lo.w; x[2] = hi.x; x[3] = hi.y;
+    } else {
+      x[0] = lo.w; x[1] = hi.x; x[2] = hi.y; x[3] = hi.z;
+    }
+  } else {
+    const float2 lo = __ldg(reinterpret_cast<const float2*>(q));
+    if (a == 0) {
+      x[0] = lo.x; x[1] = lo.y;
+      return;
+    }
+    const float2 hi = __ldg(reinterpret_cast<const float2*>(q) + 1);
+    x[0] = lo.y; x[1] = hi.x;
+  }
+}
+
+template <int R, int U>
+__global__ void __launch_bounds__(kTile / R)
+wjd_roll_win_bf16_kernel(const __nv_bfloat16* __restrict__ data,
+                         const int32_t* __restrict__ brow,
+                         const int32_t* __restrict__ diag_u,
+                         const int32_t* __restrict__ win_base,
+                         const float* __restrict__ xp, float* __restrict__ y,
+                         int K, int group) {
+  constexpr int kRollThreads = kTile / R;
+  __shared__ int off[kStage];    // (brow - win_base)*128 + u of a slot
+  const int64_t t = blockIdx.x;
+  // rows r .. r+R-1 of the tile: (s, l .. l+R-1) with r = s*128 + l, so
+  // their x lies at (brow - wb)*128 + u + r on, from the window's start
+  const int r = threadIdx.x * R;
+  const int wb = __ldg(win_base + t / group);
+  const float* __restrict__ xr = xp + static_cast<int64_t>(wb) * 128 + r;
+  const __nv_bfloat16* __restrict__ vr = data + t * K * kTile + r;
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kStage) {
+    const int n = min(kStage, K - k0);
+    __syncthreads();             // the last batch's offsets are read
+    for (int i = threadIdx.x; i < n; i += kRollThreads) {
+      const int64_t slot = t * K + k0 + i;
+      off[i] = (__ldg(brow + slot) - wb) * 128 + __ldg(diag_u + slot);
+    }
+    __syncthreads();
+    for (int k = 0; k < n; k += U) {
+      RowBits<R> w[U];
+      float xv[U][R];
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (k + j < n) {
+          w[j] = __ldcs(reinterpret_cast<const RowBits<R>*>(
+              vr + static_cast<int64_t>(k0 + k + j) * kTile));
+          load_x<R>(xr, off[k + j], xv[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (k + j < n) {
+          float v[R];
+          widen_rows<R>(w[j], v);
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[i] = fmaf(v[i], xv[j][i], acc[i]);
+        }
+      }
+    }
+  }
+  float* __restrict__ yr = y + t * kTile + r;
+  if constexpr (R == 4) {
+    *reinterpret_cast<float4*>(yr) = make_float4(acc[0], acc[1], acc[2],
+                                                 acc[3]);
+  } else {
+    *reinterpret_cast<float2*>(yr) = make_float2(acc[0], acc[1]);
+  }
+}
+
+template <int R, int U>
+int launch_roll_bf16(const void* data, const void* brow, const void* diag_u,
+                     const void* win_base, const void* xp, void* y,
+                     int64_t tp, int k, int group, int win_rows,
+                     void* stream) {
+  if (tp <= 0 || tp > 0x7fffffffLL || k <= 0 || group <= 0 ||
+      win_rows <= 0 || tp % group ||
+      reinterpret_cast<uintptr_t>(xp) % (4 * R) ||
+      reinterpret_cast<uintptr_t>(y) % (4 * R) ||
+      reinterpret_cast<uintptr_t>(data) % (2 * R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wjd_roll_win_bf16_kernel<R, U>
+      <<<static_cast<unsigned>(tp), kTile / R, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(data),
+          static_cast<const int32_t*>(brow),
+          static_cast<const int32_t*>(diag_u),
+          static_cast<const int32_t*>(win_base),
+          static_cast<const float*>(xp), static_cast<float*>(y), k, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,12 +408,14 @@ int wjd_spmv_win_roll_f32(const void* data, const void* brow,
                               group, win_rows, stream);
 }
 
+// xp and y 16-byte aligned (the bf16 kernel reads x and writes y 16 bytes
+// a thread)
 int wjd_spmv_win_roll_bf16(const void* data, const void* brow,
                            const void* diag_u, const void* win_base,
                            const void* xp, void* y, int64_t tp, int k,
                            int group, int win_rows, void* stream) {
-  return launch<__nv_bfloat16, float>(data, brow, diag_u, win_base, xp, y,
-                                      tp, k, group, win_rows, stream);
+  return launch_roll_bf16<kRollRows, kRollUnroll>(
+      data, brow, diag_u, win_base, xp, y, tp, k, group, win_rows, stream);
 }
 
 int wjd_spmv_win_gather_f32(const void* cval, const void* coff,
@@ -259,3 +438,42 @@ int wjd_spmv_win_gather_bf16(const void* cval, const void* coff,
 }
 
 }  // extern "C"
+
+#ifdef WJD_VARIANTS
+// The designs tried for wjd_spmv_win_roll_bf16, compiled only with
+// -DWJD_VARIANTS by scripts/bf16_win_variants.py, which times them beside
+// the shipped one: the f32 template on bfloat16 values (the kernel before),
+// and the new body at 2 or 4 rows a thread and 1, 2, 4 or 8 slots a batch.
+// On one H100 80GB HBM3 at 700 W, laplacian_3d(180) f32 rounded to bf16
+// (5,832,000 rows, K = 7, 89 steps of 64 tiles, win_rows 1048), us a
+// launch, the median of 8 rounds of 20: the f32 template 80.7; 2 rows a
+// thread 82.9, 65.8, 81.6, 108.9 and 4 rows 58.5 (shipped), 66.1, 68.5,
+// 109.9 at 1, 2, 4 and 8 slots a batch; the f32 plan's kernel 92.8.
+extern "C" {
+
+int wjd_spmv_win_roll_bf16_before(const void* data, const void* brow,
+                                  const void* diag_u, const void* win_base,
+                                  const void* xp, void* y, int64_t tp, int k,
+                                  int group, int win_rows, void* stream) {
+  return launch<__nv_bfloat16, float>(data, brow, diag_u, win_base, xp, y,
+                                      tp, k, group, win_rows, stream);
+}
+
+int wjd_spmv_win_roll_bf16_variant(int rows, int unroll, const void* data,
+                                   const void* brow, const void* diag_u,
+                                   const void* win_base, const void* xp,
+                                   void* y, int64_t tp, int k, int group,
+                                   int win_rows, void* stream) {
+#define WJD_ROLL_CASE(R, U)                                                 \
+  if (rows == R && unroll == U)                                             \
+    return launch_roll_bf16<R, U>(data, brow, diag_u, win_base, xp, y, tp, \
+                                  k, group, win_rows, stream);
+  WJD_ROLL_CASE(2, 1) WJD_ROLL_CASE(2, 2) WJD_ROLL_CASE(2, 4)
+  WJD_ROLL_CASE(2, 8) WJD_ROLL_CASE(4, 1) WJD_ROLL_CASE(4, 2)
+  WJD_ROLL_CASE(4, 4) WJD_ROLL_CASE(4, 8)
+#undef WJD_ROLL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"
+#endif  // WJD_VARIANTS

@@ -1,25 +1,31 @@
 // WJD gather SpMV and SpMM on bfloat16 values for NVIDIA Hopper (sm_90a),
 // over the packed form of the compact slice layout.
 //
-// Two kernels replace two Pallas kernels of the JAX package, run on
+// Three kernels replace three Pallas kernels of the JAX package, run on
 // bfloat16 values with f32 x, sums and y (the JAX kernels' acc_dt):
 //
-//   wjd_spmv_gather_bf16_packed  spmv_wjd.py:_kernel
-//   wjd_spmm_gather_bf16_packed  spmv_wjd.py:_kernel_mrhs
+//   wjd_spmv_gather_bf16_packed      spmv_wjd.py:_kernel
+//   wjd_spmm_gather_bf16_packed      spmv_wjd.py:_kernel_mrhs
+//   wjd_spmv_win_gather_bf16_packed  spmv_wjd.py:_kernel_hbm
 //
 // (spmv_wjd.py: rocalution_tpu/ops/pallas/spmv_wjd.py)
 //
-// They serve a bfloat16 gather-mode plan on the direct kernels whose offsets
-// fit 16 bits; a bfloat16 plan with 4-byte offsets, or a window-relative one,
-// keeps the compact form and the bf16 instantiations of csrc/spmv_wjd.cu and
-// csrc/spmm_wjd.cu. The choice is made when the plan is uploaded
-// (formats/wjd.py:_plan_to_wjd), by offset width and regime.
+// They serve a bfloat16 gather-mode plan whose offsets fit 16 bits, direct
+// or window-relative: the offset width alone chooses the form when the plan
+// is uploaded (formats/wjd.py:_plan_to_wjd). A bfloat16 plan with 4-byte
+// offsets keeps the compact form and the bf16 instantiations of
+// csrc/spmv_wjd.cu, csrc/spmm_wjd.cu and csrc/spmv_wjd_win.cu. A
+// window-relative plan's xbase holds its step windows, win_base[step]*128
+// repeated, so the direct SpMV and the SpMM read it unchanged; the windowed
+// SpMV reads win_base itself, as the TPU kernel does.
 //
 // Semantics: those of the compact kernels (csrc/spmv_wjd.cu): element (j,
 // lane) of slice i multiplies xp[xbase[i] + offset] and adds to row
 // i*32 + lane, ranks in ascending order, which is the slot product's order
-// less its zero padding. The COO spill and the DIA part are the Python
-// wrapper's (rocalution_tpu_torch/ops/cuda/spmv_wjd.py).
+// less its zero padding; in the windowed SpMV the base of slice i is
+// win_base[i / slices_per_step]*128, the window of its grid step. The COO
+// spill and the DIA part are the Python wrapper's
+// (rocalution_tpu_torch/ops/cuda/spmv_wjd.py).
 //
 // The packed form (formats/wjd.py:pack_bf16_slices): one 32-bit word a
 // stored element, the value's bfloat16 bits in its low half and its offset
@@ -44,14 +50,20 @@
 // streams 4 bytes a stored element (the compact form's value and offset in
 // one word), x and y.
 //
-// SpMV (wjd_packed_kernel):
+// SpMV (wjd_packed_kernel direct, wjd_packed_win_kernel windowed; both
+// sum a row with packed_row):
 //   * one warp owns one slice and one thread one row, as in the compact
 //     kernel; a lane's loop takes 4 ranks a step from one streaming 16-byte
 //     load (ld.global.cs.v4) and issues their 4 gathers of x (read-only
-//     path) before it adds the 4 products, in rank order, with fmaf;
+//     path) before it adds the 4 products, in rank order, with fmaf, so a
+//     row's sum is the same in both kernels;
 //   * the loop is unrolled by 2, so 8 gathers a lane are in flight;
-//   * blocks of 1024 threads: the 32 slices of one tile, whose gathers of x
-//     share lines in the SM's L1.
+//   * direct: blocks of 1024 threads, the 32 slices of one tile, whose
+//     gathers of x share lines in the SM's L1;
+//   * windowed: blocks of 1024 threads, one grid step each (as
+//     wjd_compact_win_kernel of csrc/spmv_wjd_win.cu), whose 32 warps walk
+//     the step's slices, so that every gather of a step reads its window
+//     (216 rows, 110,592 bytes, at 4.2M rows) through one SM's L1.
 //
 // SpMM (wjd_packed_spmm_kernel, X and Y row-major (rows, KC), KC 4, 8, 16):
 //   * one warp owns one slice; a lane loads 4 ranks of its row with one
@@ -90,6 +102,17 @@
 //     Packed, widened after the shuffle, one shuffle a row, X still
 //     gathered 4 bytes a lane (one lane a column): 239.9; X gathered 16
 //     bytes a lane: 172.9.
+//   * Windowed SpMV (scripts/bf16_win_variants.py, the same card and
+//     limit, random_banded_spd(1<<22) f32 rounded to bf16, 512 steps of 8
+//     tiles, 94.1M words, 1.496 a nonzero; the median of 8 rounds). The
+//     compact bf16 windowed kernel on 2-byte offsets 188.1 (the f32 plan's
+//     210.5); packed, a block a tile (the direct kernel's shape, the base
+//     read per step) 157.8; packed, a block a grid step 144.1, shipped; 2
+//     ranks a lane from one 8-byte load, widths padded to 2 ranks (1.433
+//     words a nonzero), a block a tile, 158.6: its 4 % fewer bytes did
+//     not pay for twice the load instructions. The blocked product of the
+//     same plan (k = 16) through xbase: packed 622.9, the compact bf16
+//     SpMM on 2-byte offsets 1460.8, the f32 plan's 1336.5.
 //
 // Element offsets are 64-bit.
 
@@ -111,23 +134,15 @@ __device__ __forceinline__ float value_of(uint32_t w) {
 }
 __device__ __forceinline__ uint32_t offset_of(uint32_t w) { return w >> 16; }
 
-__global__ void __launch_bounds__(kThreads)
-wjd_packed_kernel(const uint4* __restrict__ cpack,
-                  const int64_t* __restrict__ slice_ptr,
-                  const int64_t* __restrict__ xbase,
-                  const float* __restrict__ xp, float* __restrict__ y,
-                  int64_t nslices) {
-  const int64_t slice = static_cast<int64_t>(blockIdx.x) * kSlicesPerBlock +
-                        threadIdx.x / kSlice;
-  if (slice >= nslices) return;
-  const int lane = threadIdx.x % kSlice;
-  // slice_ptr counts words; a group of 4 ranks of a slice is 32 uint4
-  const int64_t end = __ldg(slice_ptr + slice + 1) / kPack;
-  const float* __restrict__ xs = xp + __ldg(xbase + slice);
+// one row of a slice: lane `lane` of the words [begin, end) (in groups of
+// 4 ranks, 32 uint4 a group), x from xs
+__device__ __forceinline__ float packed_row(const uint4* __restrict__ cpack,
+                                            int64_t begin, int64_t end,
+                                            const float* __restrict__ xs,
+                                            int lane) {
   float acc = 0.f;
 #pragma unroll 2
-  for (int64_t g = __ldg(slice_ptr + slice) / kPack + lane; g < end;
-       g += kSlice) {
+  for (int64_t g = begin + lane; g < end; g += kSlice) {
     const uint4 w = __ldcs(cpack + g);
     const float x0 = __ldg(xs + offset_of(w.x));
     const float x1 = __ldg(xs + offset_of(w.y));
@@ -138,7 +153,49 @@ wjd_packed_kernel(const uint4* __restrict__ cpack,
     acc = fmaf(value_of(w.z), x2, acc);
     acc = fmaf(value_of(w.w), x3, acc);
   }
-  y[slice * kSlice + lane] = acc;
+  return acc;
+}
+
+// slice_ptr counts words; a group of 4 ranks of a slice is 32 uint4
+__device__ __forceinline__ float slice_row(const uint4* __restrict__ cpack,
+                                           const int64_t* __restrict__ ptr,
+                                           int64_t slice,
+                                           const float* __restrict__ xs,
+                                           int lane) {
+  return packed_row(cpack, __ldg(ptr + slice) / kPack,
+                    __ldg(ptr + slice + 1) / kPack, xs, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+wjd_packed_kernel(const uint4* __restrict__ cpack,
+                  const int64_t* __restrict__ slice_ptr,
+                  const int64_t* __restrict__ xbase,
+                  const float* __restrict__ xp, float* __restrict__ y,
+                  int64_t nslices) {
+  const int64_t slice = static_cast<int64_t>(blockIdx.x) * kSlicesPerBlock +
+                        threadIdx.x / kSlice;
+  if (slice >= nslices) return;
+  const int lane = threadIdx.x % kSlice;
+  y[slice * kSlice + lane] =
+      slice_row(cpack, slice_ptr, slice, xp + __ldg(xbase + slice), lane);
+}
+
+// one block a grid step: x from the step's window, win_base[step]*128
+__global__ void __launch_bounds__(kThreads)
+wjd_packed_win_kernel(const uint4* __restrict__ cpack,
+                      const int64_t* __restrict__ slice_ptr,
+                      const int32_t* __restrict__ win_base,
+                      const float* __restrict__ xp, float* __restrict__ y,
+                      int slices_per_step) {
+  const int64_t step = blockIdx.x;
+  const float* __restrict__ xs =
+      xp + static_cast<int64_t>(__ldg(win_base + step)) * 128;
+  const int lane = threadIdx.x % kSlice;
+  for (int i = threadIdx.x / kSlice; i < slices_per_step;
+       i += kSlicesPerBlock) {
+    const int64_t slice = step * slices_per_step + i;
+    y[slice * kSlice + lane] = slice_row(cpack, slice_ptr, slice, xs, lane);
+  }
 }
 
 // one rank of the slice: the word of row i*kRowsPerPass + h, from the lane
@@ -250,6 +307,23 @@ int wjd_spmv_gather_bf16_packed(const void* cpack, const void* slice_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the windowed SpMV of a window-relative packed form: win_base (nsteps
+// int32), slice_ptr (nsteps*slices_per_step + 1 int64, in words)
+int wjd_spmv_win_gather_bf16_packed(const void* cpack, const void* slice_ptr,
+                                    const void* win_base, const void* xp,
+                                    void* y, int64_t nsteps,
+                                    int slices_per_step, void* stream) {
+  if (nsteps <= 0 || nsteps > 0x7fffffffLL || slices_per_step <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wjd_packed_win_kernel<<<static_cast<unsigned>(nsteps), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(cpack),
+      static_cast<const int64_t*>(slice_ptr),
+      static_cast<const int32_t*>(win_base), static_cast<const float*>(xp),
+      static_cast<float*>(y), slices_per_step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int wjd_spmm_gather_bf16_packed(const void* cpack, const void* slice_ptr,
                                 const void* xbase, const void* xp, void* y,
                                 int64_t nslices, int kc, void* stream) {
@@ -266,3 +340,46 @@ int wjd_spmm_gather_bf16_packed(const void* cpack, const void* slice_ptr,
 }
 
 }  // extern "C"
+
+#ifdef WJD_VARIANTS
+// A design tried and not shipped, compiled only with -DWJD_VARIANTS by
+// scripts/bf16_win_variants.py, which times it beside the shipped kernel:
+// the windowed SpMV in blocks of one tile, as the direct kernel, its base
+// read per grid step (157.8 us against 144.1, header).
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+wjd_packed_win_tile_kernel(const uint4* __restrict__ cpack,
+                           const int64_t* __restrict__ slice_ptr,
+                           const int32_t* __restrict__ win_base,
+                           const float* __restrict__ xp,
+                           float* __restrict__ y, int64_t nslices,
+                           int slices_per_step) {
+  const int64_t slice = static_cast<int64_t>(blockIdx.x) * kSlicesPerBlock +
+                        threadIdx.x / kSlice;
+  if (slice >= nslices) return;
+  const float* __restrict__ xs =
+      xp + static_cast<int64_t>(__ldg(win_base + slice / slices_per_step)) *
+               128;
+  y[slice * kSlice + threadIdx.x % kSlice] =
+      slice_row(cpack, slice_ptr, slice, xs, threadIdx.x % kSlice);
+}
+
+}  // namespace
+
+extern "C" int wjd_spmv_win_gather_bf16_packed_tile(
+    const void* cpack, const void* slice_ptr, const void* win_base,
+    const void* xp, void* y, int64_t nsteps, int slices_per_step,
+    void* stream) {
+  const int64_t nslices = nsteps * slices_per_step;
+  wjd_packed_win_tile_kernel<<<
+      static_cast<unsigned>((nslices + kSlicesPerBlock - 1) /
+                            kSlicesPerBlock),
+      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(cpack),
+      static_cast<const int64_t*>(slice_ptr),
+      static_cast<const int32_t*>(win_base), static_cast<const float*>(xp),
+      static_cast<float*>(y), nslices, slices_per_step);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // WJD_VARIANTS

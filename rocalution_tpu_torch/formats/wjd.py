@@ -44,20 +44,22 @@ what the direct gather kernels read on the card:
 * a plan that the windowed gather kernel serves (`windowed`) takes the
   **window-relative** form (``window_relative``): the base of every slice
   of grid step i is the step's window, ``win_base[i]*128``, so an offset
-  lies in [0, win_rows*128) and fits 2 bytes, and the kernel needs no
-  ``xbase``. The direct kernels read the same
-  form through ``xbase``.
+  lies in [0, win_rows*128), and the kernel needs no ``xbase``. That fits
+  2 bytes where every offset is below 65,536, as it is wherever
+  ``win_rows*128 <= 65,536``; a wider window may take int32 offsets. The
+  direct kernels read the same form through ``xbase``.
 
-A direct (not window-relative) bfloat16 plan whose offsets are uint16
+A bfloat16 plan whose offsets are uint16, direct or window-relative,
 takes the **packed** form instead (`pack_bf16_slices`, ``cpack``): one
 32-bit word a stored element, the value's bfloat16 bits in its low half
 and its offset in its high half, so that a lane reads 4 ranks of its row
 with one 16-byte load: word (j, lane) of a slice at ``slice_ptr[slice] +
 (j // 4)*128 + lane*4 + j % 4``, a slice's width padded to a multiple of 4
-with zero words. ``slice_ptr`` counts words, ``xbase`` is the compact
-form's, and ``cval``/``coff`` are None. A bfloat16 plan with int32 offsets,
-or a window-relative one, keeps the compact form: the plan's offset width
-and regime choose the form, and the form chooses the kernel.
+with zero words. ``slice_ptr`` counts words, ``xbase`` and
+``window_relative`` are the compact form's, and ``cval``/``coff`` are
+None. A bfloat16 plan with int32 offsets keeps the compact form: the
+offset width alone chooses the form, and the form and the regime choose
+the kernel.
 
 The padded ``data`` / ``uloc`` planes of a gather-mode plan stay on the
 host only (None on the WJD) unless the WJD lives on the CPU.
@@ -173,7 +175,8 @@ class WJD(MatrixBase):
 
     @property
     def compact_form(self) -> Optional[str]:
-        """Which form the gather kernels read: "packed", "compact", or
+        """Which form the gather kernels read: "packed" (a bfloat16 plan
+        with uint16 offsets, direct or window-relative), "compact", or
         None for a roll-mode plan."""
         if self.cpack is not None:
             return "packed"
@@ -743,12 +746,14 @@ def compact_entries(cval, coff, slice_ptr, xbase):
 
 def pack_bf16_slices(compact: dict) -> dict:
     """The packed form (module docstring) of the compact slice form of a
-    bfloat16 plan whose offsets are uint16: numpy arrays ``cpack`` (uint32
-    words, the value's bfloat16 bits | offset << 16), ``slice_ptr`` (in
-    words) and ``xbase``. A row's terms keep their ranks, so a row sums
-    the same terms in the same order, plus up to 3 zero words. The values
-    are the plan's host form of bfloat16 (f32 arrays holding bfloat16
-    values), whose low 16 bits are zero."""
+    bfloat16 plan whose offsets are uint16, direct or window-relative:
+    numpy arrays ``cpack`` (uint32 words, the value's bfloat16 bits |
+    offset << 16), ``slice_ptr`` (in words) and ``xbase`` (the compact
+    form's, so a window-relative form keeps its step windows). A row's
+    terms keep their ranks, so a row sums the same terms in the same
+    order, plus up to 3 zero words. The values are the plan's host form
+    of bfloat16 (f32 arrays holding bfloat16 values), whose low 16 bits
+    are zero."""
     cval, coff, ptr = compact["cval"], compact["coff"], compact["slice_ptr"]
     if cval.dtype != np.float32 or coff.dtype != np.uint16:
         raise ValueError(f"the packed form takes f32-held bfloat16 values "
@@ -760,53 +765,54 @@ def pack_bf16_slices(compact: dict) -> dict:
     width = np.diff(ptr) // SLICE
     pptr = np.zeros_like(ptr)
     np.cumsum(-(-width // PACK) * (PACK * SLICE), out=pptr[1:])
-    per_slice = width * SLICE
-    # element p of a slice at p0 + j*32 + lane goes to word
-    # pp0 + (j // 4)*128 + lane*4 + j % 4
-    r = np.arange(len(cval), dtype=np.int64) - np.repeat(ptr[:-1], per_slice)
-    j, lane = r >> 5, r & (SLICE - 1)
-    dest = np.repeat(pptr[:-1], per_slice) + ((j >> 2) << 7) + (lane << 2) \
-        + (j & (PACK - 1))
-    cpack = np.zeros(int(pptr[-1]), np.uint32)
-    cpack[dest] = (bits >> 16) | (coff.astype(np.uint32) << 16)
+    # rank j of a slice (a row of 32 lanes) goes to rank row j of its
+    # padded slice; then each group of 4 rank rows is transposed, so that
+    # word (j, lane) lies at (j // 4)*128 + lane*4 + j % 4
+    j = np.arange(len(cval) // SLICE, dtype=np.int64) - np.repeat(
+        ptr[:-1] // SLICE, width)
+    ranks = np.zeros((int(pptr[-1]) // SLICE, SLICE), np.uint32)
+    ranks[np.repeat(pptr[:-1] // SLICE, width) + j] = (
+        (bits >> 16) | (coff.astype(np.uint32) << 16)).reshape(-1, SLICE)
+    cpack = ranks.reshape(-1, PACK, SLICE).transpose(0, 2, 1).reshape(-1)
     return dict(cpack=cpack, slice_ptr=pptr, xbase=compact["xbase"])
 
 
 def unpack_bf16_slices(cpack, slice_ptr, xbase) -> dict:
     """The compact slice form (``cval`` as f32-held bfloat16 values,
     ``coff`` uint16, ``slice_ptr``, ``xbase``) that `pack_bf16_slices`
-    packed, from numpy arrays of the packed form. A slice's width is its
-    highest rank with a nonzero value plus one: the compact form stores
-    nonzero values only, and its longest row fills its last rank."""
+    packed, from numpy arrays of the packed form. A slice is whole groups
+    of 128 words, each 4 ranks of 32 lanes stored lane-major, so one
+    transpose of the words makes every rank a row of 32 lanes, rank-major
+    as in the compact form; a slice's width is its highest rank with a
+    nonzero value plus one (the compact form stores nonzero values only,
+    and its longest row fills its last rank), and its padding ranks are
+    dropped."""
     cpack = np.asarray(cpack).view(np.uint32)
     pptr = np.asarray(slice_ptr, np.int64)
-    q = np.arange(len(cpack), dtype=np.int64)
-    sl = np.repeat(np.arange(len(pptr) - 1), np.diff(pptr))
-    r = q - pptr[:-1][sl]
-    j = ((r >> 7) << 2) + (r & (PACK - 1))               # rank of word q
-    width = np.zeros(len(pptr) - 1, np.int64)
-    used = np.diff(pptr) > 0
-    if used.any():
-        width[used] = np.maximum.reduceat(
-            np.where(cpack & 0xFFFF, j + 1, 0), pptr[:-1][used])
+    ranks = np.ascontiguousarray(cpack.reshape(-1, SLICE, PACK).transpose(
+        0, 2, 1)).reshape(-1, SLICE)
+    rptr = pptr // SLICE                    # rank rows, padding included
+    per = np.diff(rptr)
+    j = np.arange(len(ranks), dtype=np.int64) - np.repeat(rptr[:-1], per)
+    width = np.zeros(len(per), np.int64)
+    full = per > 0
+    if full.any():
+        width[full] = np.maximum.reduceat(
+            np.where((ranks & 0xFFFF).any(axis=1), j + 1, 0),
+            rptr[:-1][full])
+    rows = ranks[j < np.repeat(width, per)].reshape(-1)
     ptr = np.zeros_like(pptr)
     np.cumsum(width * SLICE, out=ptr[1:])
-    keep = j < width[sl]
-    lane = (r >> 2) & (SLICE - 1)
-    pos = ptr[:-1][sl[keep]] + j[keep] * SLICE + lane[keep]
-    cval = np.zeros(int(ptr[-1]), np.uint32)
-    coff = np.zeros(int(ptr[-1]), np.uint16)
-    cval[pos] = cpack[keep] << 16
-    coff[pos] = cpack[keep] >> 16
-    return dict(cval=cval.view(np.float32), coff=coff, slice_ptr=ptr,
+    return dict(cval=(rows << 16).view(np.float32),
+                coff=(rows >> 16).astype(np.uint16), slice_ptr=ptr,
                 xbase=np.asarray(xbase, np.int64))
 
 
 def _packs(plan: dict, compact: dict) -> bool:
-    """Does this plan take the packed form? A bfloat16 plan on the direct
-    kernels whose compact offsets are uint16 (module docstring)."""
+    """Does this plan take the packed form? A bfloat16 plan whose compact
+    offsets are uint16, direct or window-relative: the offset width alone
+    decides (module docstring)."""
     return (plan.get("value_dtype") == "bfloat16"
-            and not compact["window_relative"]
             and compact["coff"].dtype == np.uint16)
 
 
@@ -829,15 +835,19 @@ def _check_compact_reach(compact: dict, xp_len: int) -> None:
 
 
 def _check_compact_windows(compact: dict, plan: dict) -> None:
-    """The compact twin of `_check_windows`, for a window-relative form:
-    raise ValueError unless the base of every slice of grid step i is
-    win_base[i]*128, every offset lies in [0, win_rows*128), and the last
-    window ends inside padded x. The windowed gather kernel reads x from
-    its step's window without bounds checks."""
+    """The compact twin of `_check_windows`, for a window-relative compact
+    or packed form (a word's offset is its high half, as in
+    `_check_compact_reach`): raise ValueError unless the base of every
+    slice of grid step i is win_base[i]*128, every offset lies in
+    [0, win_rows*128), and the last window ends inside padded x. The
+    windowed gather kernels read x from the step's window without bounds
+    checks."""
     wb = np.asarray(plan["win_base"], np.int64)
     win_rows, group = int(plan["win_rows"]), int(plan["group"])
     per_step = group * (TILE // SLICE)
-    xbase, off = compact["xbase"], compact["coff"]
+    xbase = compact["xbase"]
+    off = (compact["cpack"] >> 16 if "cpack" in compact
+           else compact["coff"])
     if (group <= 0 or xbase.shape != (len(wb) * per_step,)
             or not np.array_equal(xbase, np.repeat(wb * 128, per_step))):
         raise ValueError("bad WJD plan: the compact slice bases are not the "
@@ -885,8 +895,9 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     the plan has per-step windows, its step's window. A gather-mode plan
     is compacted here (`compact_slices`), window-relative where the
     windowed gather kernel will serve it, packed where it is a bfloat16
-    plan with uint16 offsets on the direct kernels (`pack_bf16_slices`);
-    its padded planes go along only to the CPU."""
+    plan with uint16 offsets (`pack_bf16_slices`), and its form is checked
+    against padded x and its step windows; its padded planes go along only
+    to the CPU."""
     if np.asarray(plan["brow"]).size:
         reach = _slot_reach(plan)
         _check_x_reach(plan, reach)
@@ -901,11 +912,11 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         compact = compact_slices(plan, window_relative=_window_regime(
             plan.get("win_base") is not None, int(plan["xp_len"]), "gather",
             vdt.itemsize, vdt == np.float32))
+        if _packs(plan, compact):
+            compact = {**compact, **pack_bf16_slices(compact),
+                       "cval": None, "coff": None}
         if compact["window_relative"]:
             _check_compact_windows(compact, plan)
-        elif _packs(plan, compact):
-            compact = {**pack_bf16_slices(compact), "cval": None,
-                       "coff": None, "window_relative": False}
         _check_compact_reach(compact, plan["xp_len"])
         plan = {**plan, **compact}
         if torch.device(device).type != "cpu":

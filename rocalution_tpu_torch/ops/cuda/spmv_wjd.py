@@ -15,13 +15,14 @@ kernels are templated CUDA kernels in three sources here:
 * ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
   16 columns a launch, lanes across the columns; gather mode on the
   compact form, roll mode on the slot planes;
-* ``csrc/wjd_bf16_packed.cu``: the direct gather kernels of a bfloat16
-  plan with 2-byte offsets (`_kernel` and `_kernel_mrhs` on bfloat16
-  values), single and blocked, over the packed form
-  (formats/wjd.py:`pack_bf16_slices`); they count as ``gather_bf16`` and
-  ``spmm_gather_bf16``. The compact bf16 kernels of the first two sources
-  serve a bfloat16 plan with 4-byte offsets or a window-relative one, and
-  count as ``gather_bf16_compact`` and ``spmm_gather_bf16_compact``.
+* ``csrc/wjd_bf16_packed.cu``: the gather kernels of a bfloat16 plan
+  with 2-byte offsets (`_kernel`, `_kernel_mrhs` and `_kernel_hbm` on
+  bfloat16 values), single, blocked and windowed, over the packed form
+  (formats/wjd.py:`pack_bf16_slices`); they count as ``gather_bf16``,
+  ``spmm_gather_bf16`` and ``win_gather_bf16``. The compact bf16 kernels
+  of the other sources serve a bfloat16 plan with 4-byte offsets, and
+  count as ``gather_bf16_compact``, ``spmm_gather_bf16_compact`` and
+  ``win_gather_bf16_compact``.
 
 See those files for the designs. The wrappers pad x, launch on the current
 stream, add the COO spill and the DIA part, and trim to n.
@@ -60,7 +61,7 @@ launches = {
     "spmm_gather_f32": 0, "roll_bf16": 0, "gather_bf16": 0,
     "win_roll_bf16": 0, "win_gather_bf16": 0, "spmm_roll_bf16": 0,
     "spmm_gather_bf16": 0, "gather_bf16_compact": 0,
-    "spmm_gather_bf16_compact": 0,
+    "spmm_gather_bf16_compact": 0, "win_gather_bf16_compact": 0,
 }
 
 # columns one SpMM launch serves; the kernel is instantiated for these
@@ -95,6 +96,9 @@ _WIN_COMPACT_ARGS = [_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _P]
 # the packed bf16 gather kernels: cpack, slice_ptr, xbase, then the tail
 # of the compact ones, and the same counters
 _PACKED_ARGS = [_P, _P, _P]
+# wjd_spmv_win_gather_bf16_packed: cpack, slice_ptr, win_base, xp, y,
+# nsteps, slices a step, stream
+_PACKED_WIN_ARGS = [_P, _P, _P, _P, _P, _I64, _INT, _P]
 
 
 def build() -> None:
@@ -262,14 +266,20 @@ def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     return _compact_product(A, xp, A.xbase)
 
 
-def _packed_product(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+def _offsets(A: WJD) -> torch.Tensor:
+    """The offsets of the packed form's words: their high halves."""
+    return (A.cpack >> 16) & 0xFFFF
+
+
+def _packed_product(A: WJD, xp: torch.Tensor,
+                    base: torch.Tensor) -> torch.Tensor:
     """Word q of slice i (formats/wjd.py:`pack_bf16_slices`) holds a
     bfloat16 value in its low half and an offset in its high half; it
-    multiplies xp[xbase[i] + offset] and adds to row i*32 + (q // 4) % 32
+    multiplies xp[base[i] + offset] and adds to row i*32 + (q // 4) % 32
     (every slice starts at a multiple of 128 words). The value widens to
     f32 exactly. xp is (xp_len,) or row-major (xp_len, kc); returns
     (nslices*32,) or (nslices*32, kc)."""
-    nslices = A.xbase.numel()
+    nslices = base.numel()
     dev = xp.device
     sl = torch.repeat_interleave(torch.arange(nslices, device=dev),
                                  A.slice_ptr.diff())
@@ -277,7 +287,7 @@ def _packed_product(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     row = sl * SLICE + ((q >> 2) & (SLICE - 1))
     w = A.cpack
     val = ((w & 0xFFFF) << 16).view(torch.float32)
-    xg = xp[A.xbase[sl] + ((w >> 16) & 0xFFFF)]
+    xg = xp[base[sl] + _offsets(A)]
     prod = val.view(-1, *([1] * (xp.dim() - 1))) * xg
     return xp.new_zeros((nslices * SLICE,) + tuple(xp.shape[1:])).index_add_(
         0, row, prod)
@@ -286,20 +296,33 @@ def _packed_product(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 def slots_plain_packed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Plain product over the packed form of a bfloat16 plan (f32 products
     of the widened values, summed in f32); returns (Tp, 8, 128)."""
-    return _packed_product(A, xp).view(-1, 8, 128)
+    return _packed_product(A, xp, A.xbase).view(-1, 8, 128)
 
 
 def slots_plain_packed_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """`slots_plain_packed` on the row-major (xp_len, kc) padded X at once;
     returns (Tp*1024, kc)."""
-    return _packed_product(A, xp)
+    return _packed_product(A, xp, A.xbase)
 
 
 def _check_window_relative(A: WJD) -> None:
     if not A.window_relative:
         raise ValueError("the windowed gather product takes the window-"
-                         "relative compact form (a plan built in the "
-                         "windowed regime)")
+                         "relative form (a plan built in the windowed "
+                         "regime)")
+
+
+def _step_bases(A: WJD, offsets: torch.Tensor) -> torch.Tensor:
+    """The base of every slice of a window-relative form, win_base[step]*128
+    (per slice), after checking that the form is window-relative
+    (ValueError) and that no offset leaves its window of win_rows rows
+    (IndexError)."""
+    _check_window_relative(A)
+    if offsets.numel() and int(offsets.max()) >= A.win_rows * 128:
+        raise IndexError(f"a compact load leaves its x window of "
+                         f"{A.win_rows} rows")
+    return A.win_base.long().repeat_interleave(
+        A.group * (TILE // SLICE)) * 128
 
 
 def slots_plain_compact_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
@@ -308,12 +331,15 @@ def slots_plain_compact_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     taken from win_base[i]*128. Raises IndexError if a load leaves its
     window of win_rows rows, ValueError for a per-slice compact form. The
     same terms in the same order as `slots_plain_compact`."""
-    _check_window_relative(A)
-    if A.coff.numel() and int(A.coff.int().max()) >= A.win_rows * 128:
-        raise IndexError(f"a compact load leaves its x window of "
-                         f"{A.win_rows} rows")
-    return _compact_product(A, xp, A.win_base.long().repeat_interleave(
-        A.group * (TILE // SLICE)) * 128)
+    return _compact_product(A, xp, _step_bases(A, A.coff.int()))
+
+
+def slots_plain_packed_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
+    """`slots_plain_compact_windowed` over the window-relative packed form
+    of a bfloat16 plan: each word's offset from its step's window,
+    IndexError where one leaves it; returns (Tp, 8, 128)."""
+    return _packed_product(A, xp, _step_bases(A, _offsets(A))).view(
+        -1, 8, 128)
 
 
 def slots_plain_compact_mrhs(A: WJD, xp: torch.Tensor) -> torch.Tensor:
@@ -345,10 +371,9 @@ def _check_operands(A: WJD, xp: torch.Tensor, compact: bool = False) -> str:
 def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
     if compact and A.cpack is not None:
         operands = [A.cpack, A.slice_ptr, A.xbase]
-        if (A.kernel_mode != "gather" or A.window_relative
-                or A.dtype != torch.bfloat16):
-            raise ValueError("the packed kernels take a direct gather-mode "
-                             "WJD with bfloat16 values")
+        if A.kernel_mode != "gather" or A.dtype != torch.bfloat16:
+            raise ValueError("the packed kernels take a gather-mode WJD "
+                             "with bfloat16 values")
         if A.cpack.dtype != torch.int32:
             raise TypeError("packed WJD words must be int32")
         if A.cpack.data_ptr() % 16:
@@ -410,8 +435,9 @@ def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Slot product through the windowed kernel (CUDA tensors only): over
-    the slot planes in roll mode, over the window-relative compact form in
-    gather mode (f32 or bf16 values only)."""
+    the slot planes in roll mode, over the window-relative compact or
+    packed form in gather mode (f32 or bf16 values only). The bf16 roll
+    kernel reads x 16 bytes a thread: xp must be 16-byte aligned."""
     compact = A.kernel_mode == "gather"
     tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
@@ -425,17 +451,28 @@ def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
                          "one entry per step of `group` tiles")
     y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
     if not compact:
+        if tag == "bf16" and xp.data_ptr() % 16:
+            raise ValueError("the windowed bf16 roll kernel reads x 16 "
+                             "bytes a thread: padded x must be 16-byte "
+                             "aligned")
         _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
                 y.data_ptr(), Tp, K, A.group, A.win_rows)
         return y
     if tag == "f64":
         raise TypeError("gather mode has no windowed kernel for f64 values")
     _check_window_relative(A)
+    per_step = A.group * (TILE // SLICE)
+    if A.cpack is not None:
+        _call("wjd_bf16_packed", "wjd_spmv_win_gather_bf16_packed",
+              _PACKED_WIN_ARGS, "win_gather_bf16", xp, A.cpack.data_ptr(),
+              A.slice_ptr.data_ptr(), wb.data_ptr(), xp.data_ptr(),
+              y.data_ptr(), wb.numel(), per_step)
+        return y
     _call("spmv_wjd_win", f"wjd_spmv_win_gather_{tag}", _WIN_COMPACT_ARGS,
-          f"win_gather_{tag}", xp, A.cval.data_ptr(), A.coff.data_ptr(),
-          A.coff.element_size(), A.slice_ptr.data_ptr(), wb.data_ptr(),
-          xp.data_ptr(), y.data_ptr(), wb.numel(),
-          A.group * (TILE // SLICE))
+          f"win_gather_{tag}" + ("_compact" if tag == "bf16" else ""), xp,
+          A.cval.data_ptr(), A.coff.data_ptr(), A.coff.element_size(),
+          A.slice_ptr.data_ptr(), wb.data_ptr(), xp.data_ptr(),
+          y.data_ptr(), wb.numel(), per_step)
     return y
 
 
@@ -523,30 +560,34 @@ def _apply_mrhs(A: WJD, X: torch.Tensor, slots) -> torch.Tensor:
 
 
 def plain_gather(A: WJD, mrhs: bool = False):
-    """The plain version of the direct gather kernel that serves A (single
-    or, with `mrhs`, blocked): over its packed form or its compact form."""
-    if A.cpack is not None:
-        return slots_plain_packed_mrhs if mrhs else slots_plain_packed
-    return slots_plain_compact_mrhs if mrhs else slots_plain_compact
+    """The plain version of the gather kernel that serves A (single or,
+    with `mrhs`, blocked): over its packed form or its compact form, a
+    single product of a window-relative form through the step windows (the
+    windowed kernels' sums: the same terms in the same order as through
+    ``xbase``, which the blocked kernels read)."""
+    packed = A.cpack is not None
+    if mrhs:
+        return slots_plain_packed_mrhs if packed else slots_plain_compact_mrhs
+    if A.window_relative:
+        return (slots_plain_packed_windowed if packed
+                else slots_plain_compact_windowed)
+    return slots_plain_packed if packed else slots_plain_compact
 
 
 def wjd_spmv(A: WJD, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a WJD matrix; single right-hand side. A CUDA tensor
     launches a kernel: the windowed one where the plan is in the windowed
     regime (formats/wjd.py:`windowed`), else the direct one (gather mode:
-    on the compact form, in both). A CPU tensor takes the plain version of
-    the same. y has the plan's x dtype (f32 for bfloat16 values)."""
-    gather = A.kernel_mode == "gather"
-    if windowed(A, A.x_dtype):
-        if x.is_cuda:
-            slots = slots_kernel_windowed
-        else:
-            slots = (slots_plain_compact_windowed if gather
-                     else slots_plain_windowed)
-    elif x.is_cuda:
-        slots = slots_kernel
+    on the compact or packed form, in both). A CPU tensor takes the plain
+    version of the same. y has the plan's x dtype (f32 for bfloat16
+    values)."""
+    win = windowed(A, A.x_dtype)
+    if x.is_cuda:
+        slots = slots_kernel_windowed if win else slots_kernel
+    elif A.kernel_mode == "gather":
+        slots = plain_gather(A)        # a gather plan's regime is its form's
     else:
-        slots = plain_gather(A) if gather else slots_plain
+        slots = slots_plain_windowed if win else slots_plain
     return _apply(A, x, slots)
 
 

@@ -1,12 +1,12 @@
 """Port parity: the packed form of a bfloat16 gather plan.
 
-A direct (not window-relative) bfloat16 gather plan whose compact offsets
-are uint16 is uploaded in the packed form (formats/wjd.py:
-`pack_bf16_slices`): one 32-bit word a stored element, bfloat16 bits |
-offset << 16, 4 ranks of a row in 16 consecutive bytes, a slice padded to
-a multiple of 4 ranks. Here: the packed form unpacked is `compact_slices`'
-form bit for bit (ragged and empty slices included); a plan with 4-byte
-offsets, or a window-relative one, keeps the compact form; the packed
+A bfloat16 gather plan whose compact offsets are uint16 is uploaded in the
+packed form (formats/wjd.py: `pack_bf16_slices`): one 32-bit word a stored
+element, bfloat16 bits | offset << 16, 4 ranks of a row in 16 consecutive
+bytes, a slice padded to a multiple of 4 ranks. Here: the packed form
+unpacked is `compact_slices`' form bit for bit (ragged and empty slices
+included); a plan with 4-byte offsets, direct or window-relative, keeps
+the compact form; the packed
 form's plain products (single, and blocked over 16 and 20 columns) equal
 the JAX `wjd_reference` on the JAX planner's bfloat16 plan at 1e-5, as
 tests/test_torch_bf16.py holds the compact form; and an f32 CG over a
@@ -139,25 +139,25 @@ def test_packed_plan_on_the_wjd():
 
 @pytest.mark.parametrize("case", ["int32_offsets", "window_relative"])
 def test_other_bf16_plans_keep_the_compact_form(case, monkeypatch):
-    """The form is chosen by offset width and regime: a bfloat16 plan with
-    int32 offsets, or one in the windowed regime, keeps the compact form
-    (and its kernels)."""
-    if case == "int32_offsets":
-        rng = np.random.default_rng(5)
-        S = sp.random(2500, 150_000, density=8 / 150_000, format="csr",
-                      random_state=rng, dtype=np.float32)
-        S.sort_indices()
-        A = rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
-                               S.indptr.astype(np.int32), S.shape)
-        W = from_csr(A, values_dtype=BF16, split_dia=False)
-        assert W.coff.dtype == torch.int32
-    else:
+    """The form is chosen by offset width alone: a bfloat16 plan with int32
+    offsets keeps the compact form (and its kernels), direct or in the
+    windowed regime, where a window of more than 65,536 elements of x
+    (win_rows*128) lets its window-relative offsets pass 16 bits."""
+    rng = np.random.default_rng(5)
+    S = sp.random(2500, 150_000, density=8 / 150_000, format="csr",
+                  random_state=rng, dtype=np.float32)
+    S.sort_indices()
+    A = rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
+                           S.indptr.astype(np.int32), S.shape)
+    if case == "window_relative":
         monkeypatch.setattr(torch_wjd, "X_VMEM_BUDGET", 1024)
         monkeypatch.setattr(torch_wjd, "_auto_group", lambda K: 1)
         monkeypatch.setattr(torch_wjd, "_auto_group_windowed", lambda K: 1)
-        W = from_csr(OPERATORS["randband_3000"](rt), values_dtype=BF16,
-                     split_dia=False)
-        assert W.window_relative and W.coff.dtype == torch.uint16
+    W = from_csr(A, values_dtype=BF16, split_dia=False)
+    assert W.window_relative is (case == "window_relative")
+    if W.window_relative:
+        assert W.win_rows * 128 > 1 << 16
+    assert W.coff.dtype == torch.int32
     assert W.compact_form == "compact" and W.cpack is None
     assert W.cval.dtype == torch.bfloat16
 

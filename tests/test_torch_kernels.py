@@ -682,7 +682,7 @@ def test_bf16_kernel_matches_plain_version(cuda_device, key, monkeypatch):
     gather = W.kernel_mode == "gather"
     if key.startswith("win_"):
         launch = kernels.slots_kernel_windowed
-        plain = (kernels.slots_plain_compact_windowed if gather
+        plain = (kernels.plain_gather(W) if gather
                  else kernels.slots_plain_windowed)
     else:
         launch = kernels.slots_kernel
@@ -744,7 +744,7 @@ def test_bf16_plan_on_cuda_never_takes_the_plain_version(cuda_device,
     for name in ("slots_plain", "slots_plain_compact", "slots_plain_windowed",
                  "slots_plain_compact_windowed", "slots_plain_mrhs",
                  "slots_plain_compact_mrhs", "slots_plain_packed",
-                 "slots_plain_packed_mrhs"):
+                 "slots_plain_packed_mrhs", "slots_plain_packed_windowed"):
         monkeypatch.setattr(kernels, name, refuse)
     before = dict(kernels.launches)
     x = _x(A.shape[1], torch.float32, cuda_device)
@@ -856,6 +856,116 @@ def test_packed_kernels_refuse_misaligned_operands(cuda_device):
         kernels.slots_kernel(dataclasses.replace(W, cpack=moved),
                              kernels.pad_x(W, X[:, 0].contiguous()))
     assert kernels.launches == before
+
+
+WIN_BF16_GATHER = {
+    # name: (operator on the CPU, planner kwargs, tiles a step, form)
+    "band_packed": (BF16_GATHER["band_packed"][0], {"split_dia": False}, 1,
+                    "packed"),
+    "band_group2_spill_packed": (BF16_GATHER["band_packed"][0],
+                                 {"split_dia": False, "max_slots": 4}, 2,
+                                 "packed"),
+    "ragged_packed": (_ragged_rows, {"split_dia": False,
+                                     "kernel_mode": "gather"}, 1, "packed"),
+    "wide_compact_i32": (lambda: _wide_rows(np.float32),
+                         {"split_dia": False}, 1, "compact"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIN_BF16_GATHER))
+def test_windowed_bf16_gather_kernels_on_each_form(cuda_device, name,
+                                                   monkeypatch):
+    """A windowed bf16 gather plan takes the packed form where its
+    window-relative offsets fit 2 bytes, else the compact form (4-byte
+    offsets). Its windowed kernel launches its own counter
+    (win_gather_bf16 or win_gather_bf16_compact) and no other counter
+    moves; it agrees with the windowed plain version over its form and the
+    padded slot product, and is bit for bit the direct kernel over the
+    same form (xbase holds the step windows). Its blocked product goes
+    through the SpMM kernel of its form (the packed one counts
+    spmm_gather_bf16), and no other counter moves."""
+    make, kw, group, form = WIN_BF16_GATHER[name]
+    _windowed_regime(monkeypatch, group)
+    W = _on_card(from_csr(make(), values_dtype="bfloat16", **kw))
+    assert W.window_relative and windowed(W, torch.float32)
+    assert W.compact_form == form and W.group == group
+    tail = "" if form == "packed" else "_compact"
+    key, spmm_key = f"win_gather_bf16{tail}", f"spmm_gather_bf16{tail}"
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    xp = kernels.pad_x(W, x)
+    direct = kernels.slots_kernel(W, xp)
+    before = dict(kernels.launches)
+    y = kernels.slots_kernel_windowed(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, key: before[key] + 1}
+    assert _rel(y, kernels.plain_gather(W)(W, xp)) <= tol
+    assert _rel(y, kernels.slots_plain(W, xp)) <= tol
+    assert torch.equal(y, direct)
+    y = kernels.wjd_spmv(W, x)
+    assert kernels.launches == {**before, key: before[key] + 2}
+    assert _rel(y, kernels.wjd_reference(W, x)) <= tol
+    X = _x(W.shape[1] * 16, torch.float32, cuda_device).view(-1, 16)
+    before = dict(kernels.launches)
+    Y = rt.spmv(W, X)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, spmm_key: before[spmm_key] + 1}
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= tol
+
+
+def _diagonals(offsets, n=3000):
+    """n rows with random values on the diagonals `offsets`, on the CPU."""
+    rng = np.random.default_rng(9)
+    offsets = list(offsets)
+    S = sp.diags([rng.standard_normal(n - abs(d)).astype(np.float32)
+                  for d in offsets], offsets, shape=(n, n), format="csr")
+    S.sort_indices()
+    return rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
+                              S.indptr.astype(np.int32), S.shape,
+                              device="cpu")
+
+
+ROLL_BF16 = {
+    # name: (diagonal offsets, planner kwargs): K = 7, and K = 150, more
+    # slots than the kernel stages at a time (128)
+    "seven": (range(-3, 4), {}),
+    "many_slots": (range(-149, 1), {"max_slots": None}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROLL_BF16))
+def test_windowed_bf16_roll_kernel(cuda_device, name, monkeypatch):
+    """The windowed bf16 roll kernel (4 rows a thread, slot offsets staged
+    128 at a time) against its plain version at 1e-5, on plans whose
+    diag_u covers every residue mod 4 (every alignment of a thread's 4 x
+    values), with K not a multiple of 4 and three grid steps; the entry
+    point launches it and no other counter moves; an x off a 16-byte
+    boundary is refused."""
+    offsets, kw = ROLL_BF16[name]
+    _windowed_regime(monkeypatch)
+    W = _on_card(from_csr(_diagonals(offsets), values_dtype="bfloat16",
+                          kernel_mode="roll", split_dia=False, **kw))
+    K = W.brow.shape[1]
+    assert windowed(W, torch.float32) and len(W.win_base) == 3
+    assert K % 4 and K == len(offsets)
+    assert set((W.diag_u & 3).unique().tolist()) == {0, 1, 2, 3}
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = dict(kernels.launches)
+    y = kernels.slots_kernel_windowed(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before,
+                                "win_roll_bf16": before["win_roll_bf16"] + 1}
+    assert _rel(y, kernels.slots_plain_windowed(W, xp)) <= tol
+    y = kernels.wjd_spmv(W, x)
+    assert kernels.launches["win_roll_bf16"] == before["win_roll_bf16"] + 2
+    assert _rel(y, kernels.wjd_reference(W, x)) <= tol
+    moved = torch.empty(xp.numel() + 1, dtype=torch.float32,
+                        device=cuda_device)[1:]
+    moved.copy_(xp)
+    with pytest.raises(ValueError):
+        kernels.slots_kernel_windowed(W, moved)
 
 
 # the preconditioners of the rest of the stack: name -> (operator, build)
