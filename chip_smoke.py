@@ -48,14 +48,14 @@ each went through its kernels:
        kernels and plain, their launches held to their iterations. N3:
        MixedPrecisionDC on random_banded_spd(1<<20) f64 with an inner CG
        over a bf16 plan, beside the same solve over the f32 plan
-  O    the rest of the preconditioner stack and Ruge-Stüben AMG at a
-       million rows in f64, through the kernels and plain. O1: CG + RS-AMG
-       (greedy/direct on laplacian_2d(1024), pmis/extpi on
+  O    the rest of the preconditioner stack and Ruge-Stüben AMG in f64,
+       through the kernels and plain. O1: CG + RS-AMG (greedy/direct on
+       laplacian_2d(1024), a million rows, pmis/extpi on
        laplacian_2d(512)) and the device PMIS C/F split of
        laplacian_2d(1024)'s strength graph against the CPU's. O2: CG on
-       laplacian_3d(100) with SGS, SSOR, multicoloured SGS and ILU(0, 1),
+       laplacian_3d(80) with SGS, SSOR, multicoloured SGS and ILU(0, 1),
        FSAI, SPAI, TNS, AIChebyshev, BlockJacobi, AS, RAS and BSR-IC(0).
-       O3: GMRES(30) on convection_diffusion_2d(1024) with ILU(1), ILUT and
+       O3: GMRES(30) on convection_diffusion_2d(724) with ILU(1), ILUT and
        BSR-ILU(0) (Jacobi-swept factors), FGMRES with ME(3) and a
        VariablePreconditioner. Each preconditioner's apply on the card is
        first held against the same preconditioner built and applied on the
@@ -160,8 +160,13 @@ N2_POWER_ITERS = 200
 O_RS_N = 1024               # phase O1: laplacian_2d(1024), 1,048,576 rows
 O_RS_PMIS_N = 512           # pmis/extpi on laplacian_2d(512) (its levels
                             # stall near 8.7k rows, a large coarse solve)
-O_LAP_N = 100               # phase O2: laplacian_3d(100) f64, 1,000,000 rows
-O_CD_N = 1024               # phase O3: convection_diffusion_2d(1024) f64
+# phases O2 and O3 at half a million rows: their setups and level-scheduled
+# sweeps are host work, and at a million rows (laplacian_3d(100),
+# convection_diffusion_2d(1024)) phase O alone took 342 s of a 1268 s run
+# on a slow host, past the run's 1200 s limit
+O_LAP_N = 80                # phase O2: laplacian_3d(80) f64, 512,000 rows
+O_CD_N = 724                # phase O3: convection_diffusion_2d(724) f64,
+                            # 524,176 rows
 O_CHECK_LAP_N = 24          # phase O: the card-against-CPU apply of each
 O_CHECK_CD_N = 96           # preconditioner, on laplacian_3d(24) (13,824
                             # rows) or convection_diffusion_2d(96) (9,216)
@@ -169,7 +174,7 @@ O_CG = dict(rel_tol=1e-8, max_iter=2000)
 CARD = "cuda"               # the device of phase O's card-side builds
 O_GMRES = dict(basis_size=30, rel_tol=1e-6, max_iter=600)
 O_VAR_MAX_ITER = 30         # the variable row: its SGS branch sweeps the
-                            # 2 x 2047 levels of its schedules, ~0.4 s
+                            # 2 x (2 O_CD_N - 1) levels of its schedules
 O_RS_PMIS_MAX_ITER = 100    # pmis/extpi: CG stalls on its inexact coarse
                             # solve (status 4 at 200 too)
 O_ERR = 1e-6                # |x-1|/|1| bound of the CG rows (phase D's)
@@ -302,7 +307,7 @@ KERNELS = {
     "win_roll_f64": ("wjd_spmv_win_roll_f64", "spmv_wjd_win.cu", 375),
     "win_roll_f32": ("wjd_spmv_win_roll_f32", "spmv_wjd_win.cu", 233),
     "win_gather_f32": ("wjd_spmv_win_gather_f32", "spmv_wjd_win.cu", 310),
-    "roll_bf16": ("wjd_spmv_roll_bf16", "spmv_wjd.cu", 183),
+    "roll_bf16": ("wjd_spmv_roll_bf16", "spmv_wjd_win.cu", 183),
     "gather_bf16": ("wjd_spmv_gather_bf16_packed", "wjd_bf16_packed.cu", 137),
     "spmm_roll_bf16": ("wjd_spmm_roll_bf16", "spmm_wjd.cu", 448),
     "spmm_gather_bf16": ("wjd_spmm_gather_bf16_packed", "wjd_bf16_packed.cu",
@@ -2385,9 +2390,9 @@ def phase_o1(rt, kernels, totals):
 
 
 def phase_o(rt, kernels, totals):
-    """Phase O: O1 (RS-AMG), O2 (CG on laplacian_3d(100) with the
+    """Phase O: O1 (RS-AMG), O2 (CG on laplacian_3d(O_LAP_N) with the
     preconditioners of the rest of the stack), O3 (GMRES(30) and FGMRES on
-    convection_diffusion_2d(1024))."""
+    convection_diffusion_2d(O_CD_N))."""
     from rocalution_tpu_torch import precond as P
 
     t0 = time.perf_counter()
@@ -2425,8 +2430,8 @@ def phase_o(rt, kernels, totals):
                         True),
         "RAS(n/64, 8)": (lambda A: P.restricted_additive_schwarz(
             A, A.shape[0] // 64, 8), True),
-        # 8 Jacobi sweeps: the flattened factor's level schedules (496
-        # levels each) took 82-137 ms an iteration
+        # 8 Jacobi sweeps: at laplacian_3d(100) the flattened factor's level
+        # schedules (496 levels each) took 82-137 ms an iteration
         "BSR-IC(0) block_dim 2, 8 sweeps": (
             lambda A: P.bsr_ic0(bsr(A), method="jacobi", sweeps=8), False),
     }

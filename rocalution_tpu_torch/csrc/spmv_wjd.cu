@@ -4,16 +4,17 @@
 //
 //   wjd_spmv_roll_f64    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_ff
 //   wjd_spmv_roll_f32    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll
-//   wjd_spmv_roll_bf16   the same, on bfloat16 values
+//                        (on bfloat16 values: wjd_spmv_roll_bf16, 4 rows a
+//                        thread, csrc/spmv_wjd_win.cu)
 //   wjd_spmv_gather_f64  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_ff
 //   wjd_spmv_gather_f32  rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel
 //   wjd_spmv_gather_bf16 the same, on bfloat16 values
 //
 // Each kernel takes the type V of the values apart from the type T of x,
 // the sums and y: V = T for f64 and f32; V = bfloat16 with T = float for
-// the bf16 entry points, as the JAX kernels widen bfloat16 values to their
-// f32 accumulator (acc_dt). Such a plan streams 2 bytes a value where f32
-// streams 4; its x and y are f32.
+// the bf16 gather entry point, as the JAX kernels widen bfloat16 values to
+// their f32 accumulator (acc_dt). Such a plan streams 2 bytes a value where
+// f32 streams 4; its x and y are f32.
 //
 // Semantics (wjd_reference): element (t, k, s, l) of slot (t, k) multiplies
 // xp[(brow[t,k] + s) * 128 + l + u], with u = diag_u[t,k] in roll mode and
@@ -173,7 +174,7 @@ int launch_gather(const void* cval, const void* coff, int coff_bytes,
 // after the launch: 0 on success. The gather entry points take the compact
 // slice form: values, offsets of coff_bytes (2 or 4) each, slice_ptr
 // (nslices + 1, int64), xbase (nslices, int64); y has nslices*32 rows.
-// The bf16 entry points take bfloat16 values and an f32 x and y.
+// The bf16 entry point takes bfloat16 values and an f32 x and y.
 extern "C" {
 
 int wjd_spmv_roll_f64(const void* data, const void* brow, const void* diag_u,
@@ -187,13 +188,6 @@ int wjd_spmv_roll_f32(const void* data, const void* brow, const void* diag_u,
                       const void* xp, void* y, int64_t tp, int k,
                       void* stream) {
   return launch_roll<float, float>(data, brow, diag_u, xp, y, tp, k, stream);
-}
-
-int wjd_spmv_roll_bf16(const void* data, const void* brow, const void* diag_u,
-                       const void* xp, void* y, int64_t tp, int k,
-                       void* stream) {
-  return launch_roll<__nv_bfloat16, float>(data, brow, diag_u, xp, y, tp, k,
-                                           stream);
 }
 
 int wjd_spmv_gather_f64(const void* cval, const void* coff, int coff_bytes,

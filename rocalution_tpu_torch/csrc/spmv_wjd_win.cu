@@ -1,4 +1,6 @@
-// WJD single-RHS SpMV with per-step x windows, for NVIDIA Hopper (sm_90a).
+// WJD single-RHS SpMV with per-step x windows, for NVIDIA Hopper (sm_90a),
+// and the direct roll SpMV on bfloat16 values, which shares the windowed
+// one's body.
 //
 // Replaces the three Pallas kernels of the JAX package that leave x in
 // device memory and copy one (win_rows, 128) window of it per grid step:
@@ -13,6 +15,13 @@
 //   wjd_spmv_win_roll_bf16   the same, on bfloat16 values (a kernel of its
 //                            own, wjd_roll_win_bf16_kernel, below)
 //   wjd_spmv_win_roll_f64    rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll_ff_hbm
+//
+// and, with no window, the direct Pallas kernel on bfloat16 values:
+//
+//   wjd_spmv_roll_bf16       rocalution_tpu/ops/pallas/spmv_wjd.py:_kernel_roll
+//                            on bfloat16 values (wjd_roll_bf16_kernel; the
+//                            f32 and f64 direct roll kernels are in
+//                            csrc/spmv_wjd.cu)
 //
 // As in csrc/spmv_wjd.cu, the type V of the values is apart from the type T
 // of x, the sums and y: the bf16 entry points widen bfloat16 values into f32
@@ -60,6 +69,30 @@
 // 58.5 us in place of 80.7 on the same operator, beside 92.8 for the f32
 // kernel (one H100 80GB HBM3 at 700 W, scripts/bf16_win_variants.py; the
 // designs tried, with their times, are listed at the end of this file).
+//
+// The direct bf16 roll SpMV (wjd_roll_bf16_kernel) is the same body,
+// roll_bf16_tile, with no window (a template switch: the window's base is
+// 0 and win_base is not read), so a direct plan needs no win_base. A
+// direct plan's padded x is at most 12 MiB (the regime rule,
+// formats/wjd.py:X_VMEM_BUDGET), so its staged offsets brow*128 + u hold
+// in 32 bits; the wrapper checks that xp_len does. The two kernels differ
+// in their launch bounds alone: the direct one asks for blocks that fill
+// an SM (32 registers a thread at 4 rows, 100 bytes of spill), since a
+// direct plan is small (at 1M rows, 984 tiles) and at the 40 registers the
+// body takes unbounded an SM holds 6 of its 8 blocks, so the tiles take a
+// second, partial wave. The windowed kernel keeps its bounds as they were:
+// naming a minimum of 1 block in them moved ptxas to 72-86 registers and
+// the windowed kernel from 60.7 to 107.7 us at 5.8M rows.
+// The direct kernel replaced the f32 template's bf16 instantiation
+// (csrc/spmv_wjd.cu, one thread a row). On one H100 80GB HBM3 at 700 W,
+// laplacian_3d(100) f32 rounded to bf16 (1M rows, K = 7), us a launch, the
+// mean of 200 back-to-back launches, the median of 12 rounds
+// (scripts/bf16_roll_spmm_variants.py): the template 11.0; this body at a
+// full SM 7.7 (shipped), at 2 rows a thread 8.7, with its registers
+// unbounded (the windowed kernel over one window at base 0, 48 registers)
+// 8.9; the f32 plan's kernel 14.1. chip_smoke.py's single launch after a
+// spin reads 12.5 against 15.0 for the template: ~4-5 us of it is the
+// launch itself at this size.
 //
 // Gather mode (wjd_compact_win_kernel) reads the plan's window-relative
 // compact slice form (formats/wjd.py:compact_slices): slices of 32 rows,
@@ -165,6 +198,7 @@ int launch(const void* data, const void* brow, const void* diag_u,
 
 constexpr int kRollRows = 4;               // rows a thread
 constexpr int kRollUnroll = 1;             // slots whose loads go together
+constexpr int kSmThreads = 2048;           // threads an SM holds
 constexpr int kStage = 128;                // slot offsets staged at a time
 
 // R bfloat16 values of R consecutive rows: one load of 2R bytes
@@ -218,21 +252,21 @@ __device__ __forceinline__ void load_x(const float* __restrict__ xr, int o,
   }
 }
 
-template <int R, int U>
-__global__ void __launch_bounds__(kTile / R)
-wjd_roll_win_bf16_kernel(const __nv_bfloat16* __restrict__ data,
-                         const int32_t* __restrict__ brow,
-                         const int32_t* __restrict__ diag_u,
-                         const int32_t* __restrict__ win_base,
-                         const float* __restrict__ xp, float* __restrict__ y,
-                         int K, int group) {
+// One tile (the block's): x through the window of the tile's grid step
+// (kWin), or from padded x itself (the direct kernel: wb = 0, and win_base
+// and group are not read).
+template <int R, int U, bool kWin>
+__device__ __forceinline__ void roll_bf16_tile(
+    const __nv_bfloat16* __restrict__ data, const int32_t* __restrict__ brow,
+    const int32_t* __restrict__ diag_u, const int32_t* __restrict__ win_base,
+    const float* __restrict__ xp, float* __restrict__ y, int K, int group) {
   constexpr int kRollThreads = kTile / R;
   __shared__ int off[kStage];    // (brow - win_base)*128 + u of a slot
   const int64_t t = blockIdx.x;
   // rows r .. r+R-1 of the tile: (s, l .. l+R-1) with r = s*128 + l, so
   // their x lies at (brow - wb)*128 + u + r on, from the window's start
   const int r = threadIdx.x * R;
-  const int wb = __ldg(win_base + t / group);
+  const int wb = kWin ? __ldg(win_base + t / group) : 0;
   const float* __restrict__ xr = xp + static_cast<int64_t>(wb) * 128 + r;
   const __nv_bfloat16* __restrict__ vr = data + t * K * kTile + r;
   float acc[R];
@@ -279,15 +313,47 @@ wjd_roll_win_bf16_kernel(const __nv_bfloat16* __restrict__ data,
 }
 
 template <int R, int U>
+__global__ void __launch_bounds__(kTile / R)
+wjd_roll_win_bf16_kernel(const __nv_bfloat16* __restrict__ data,
+                         const int32_t* __restrict__ brow,
+                         const int32_t* __restrict__ diag_u,
+                         const int32_t* __restrict__ win_base,
+                         const float* __restrict__ xp, float* __restrict__ y,
+                         int K, int group) {
+  roll_bf16_tile<R, U, true>(data, brow, diag_u, win_base, xp, y, K, group);
+}
+
+// The direct kernel asks for blocks that fill an SM's threads (32
+// registers a thread): at the registers the body takes unbounded (40 at
+// R = 4) an SM holds 6 of 8 blocks, and the 984 tiles of a million rows
+// take a second, partial wave.
+template <int R>
+__global__ void __launch_bounds__(kTile / R, kSmThreads / (kTile / R))
+wjd_roll_bf16_kernel(const __nv_bfloat16* __restrict__ data,
+                     const int32_t* __restrict__ brow,
+                     const int32_t* __restrict__ diag_u,
+                     const float* __restrict__ xp, float* __restrict__ y,
+                     int K) {
+  roll_bf16_tile<R, kRollUnroll, false>(data, brow, diag_u, nullptr, xp, y,
+                                        K, 1);
+}
+
+template <int R>
+bool roll_bf16_args_ok(const void* data, const void* xp, const void* y,
+                       int64_t tp, int k) {
+  return tp > 0 && tp <= 0x7fffffffLL && k > 0 &&
+         reinterpret_cast<uintptr_t>(xp) % (4 * R) == 0 &&
+         reinterpret_cast<uintptr_t>(y) % (4 * R) == 0 &&
+         reinterpret_cast<uintptr_t>(data) % (2 * R) == 0;
+}
+
+template <int R, int U>
 int launch_roll_bf16(const void* data, const void* brow, const void* diag_u,
                      const void* win_base, const void* xp, void* y,
                      int64_t tp, int k, int group, int win_rows,
                      void* stream) {
-  if (tp <= 0 || tp > 0x7fffffffLL || k <= 0 || group <= 0 ||
-      win_rows <= 0 || tp % group ||
-      reinterpret_cast<uintptr_t>(xp) % (4 * R) ||
-      reinterpret_cast<uintptr_t>(y) % (4 * R) ||
-      reinterpret_cast<uintptr_t>(data) % (2 * R))
+  if (!roll_bf16_args_ok<R>(data, xp, y, tp, k) || group <= 0 ||
+      win_rows <= 0 || tp % group)
     return static_cast<int>(cudaErrorInvalidValue);
   wjd_roll_win_bf16_kernel<R, U>
       <<<static_cast<unsigned>(tp), kTile / R, 0,
@@ -297,6 +363,20 @@ int launch_roll_bf16(const void* data, const void* brow, const void* diag_u,
           static_cast<const int32_t*>(diag_u),
           static_cast<const int32_t*>(win_base),
           static_cast<const float*>(xp), static_cast<float*>(y), k, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_roll_bf16_direct(const void* data, const void* brow,
+                            const void* diag_u, const void* xp, void* y,
+                            int64_t tp, int k, void* stream) {
+  if (!roll_bf16_args_ok<R>(data, xp, y, tp, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wjd_roll_bf16_kernel<R><<<static_cast<unsigned>(tp), kTile / R, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(data),
+      static_cast<const int32_t*>(brow), static_cast<const int32_t*>(diag_u),
+      static_cast<const float*>(xp), static_cast<float*>(y), k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,6 +498,15 @@ int wjd_spmv_win_roll_bf16(const void* data, const void* brow,
       data, brow, diag_u, win_base, xp, y, tp, k, group, win_rows, stream);
 }
 
+// the direct bf16 roll SpMV (csrc/spmv_wjd.cu's roll signature): the same
+// body with no window; xp and y 16-byte aligned, y of tp*1024 rows
+int wjd_spmv_roll_bf16(const void* data, const void* brow, const void* diag_u,
+                       const void* xp, void* y, int64_t tp, int k,
+                       void* stream) {
+  return launch_roll_bf16_direct<kRollRows>(data, brow, diag_u, xp, y, tp,
+                                            k, stream);
+}
+
 int wjd_spmv_win_gather_f32(const void* cval, const void* coff,
                             int coff_bytes, const void* slice_ptr,
                             const void* win_base, const void* xp, void* y,
@@ -443,7 +532,9 @@ int wjd_spmv_win_gather_bf16(const void* cval, const void* coff,
 // The designs tried for wjd_spmv_win_roll_bf16, compiled only with
 // -DWJD_VARIANTS by scripts/bf16_win_variants.py, which times them beside
 // the shipped one: the f32 template on bfloat16 values (the kernel before),
-// and the new body at 2 or 4 rows a thread and 1, 2, 4 or 8 slots a batch.
+// and the new body at 2 or 4 rows a thread and 1, 2, 4 or 8 slots a batch;
+// and the direct kernel at 2 rows a thread, for
+// scripts/bf16_roll_spmm_variants.py.
 // On one H100 80GB HBM3 at 700 W, laplacian_3d(180) f32 rounded to bf16
 // (5,832,000 rows, K = 7, 89 steps of 64 tiles, win_rows 1048), us a
 // launch, the median of 8 rounds of 20: the f32 template 80.7; 2 rows a
@@ -472,6 +563,15 @@ int wjd_spmv_win_roll_bf16_variant(int rows, int unroll, const void* data,
   WJD_ROLL_CASE(2, 8) WJD_ROLL_CASE(4, 1) WJD_ROLL_CASE(4, 2)
   WJD_ROLL_CASE(4, 4) WJD_ROLL_CASE(4, 8)
 #undef WJD_ROLL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int wjd_spmv_roll_bf16_variant(int rows, const void* data, const void* brow,
+                               const void* diag_u, const void* xp, void* y,
+                               int64_t tp, int k, void* stream) {
+  if (rows == 2)
+    return launch_roll_bf16_direct<2>(data, brow, diag_u, xp, y, tp, k,
+                                      stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

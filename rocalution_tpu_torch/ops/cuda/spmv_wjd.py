@@ -4,17 +4,20 @@ Counterpart of rocalution_tpu/ops/pallas/spmv_wjd.py. Its eight Pallas
 kernels are templated CUDA kernels in three sources here:
 
 * ``csrc/spmv_wjd.cu``: the direct single-RHS kernels (`_kernel`,
-  `_kernel_roll`, `_kernel_ff`, `_kernel_roll_ff`), four C entry points;
-  the two gather entry points read the plan's row-compacted slice form
-  (formats/wjd.py:`compact_slices`), the two roll ones its slot planes;
+  `_kernel_roll`, `_kernel_ff`, `_kernel_roll_ff`); the gather entry
+  points read the plan's row-compacted slice form
+  (formats/wjd.py:`compact_slices`), the roll ones its slot planes;
 * ``csrc/spmv_wjd_win.cu``: the slot product with x read through per-step
   windows (`_kernel_hbm`, `_kernel_roll_hbm`, `_kernel_roll_ff_hbm`), for
   plans in the windowed regime (formats/wjd.py:`windowed`); the gather
   entry point reads the window-relative compact form
-  (`WJD.window_relative`);
+  (`WJD.window_relative`). Its bf16 roll body, 4 rows a thread, also
+  serves the direct bf16 roll entry point with no window
+  (``wjd_spmv_roll_bf16``);
 * ``csrc/spmm_wjd.cu``: blocked right-hand sides (`_kernel_mrhs`), at most
   16 columns a launch, lanes across the columns; gather mode on the
-  compact form, roll mode on the slot planes;
+  compact form, roll mode on the slot planes; the bf16 gather kernel holds
+  its values raw, 4 ranks ahead;
 * ``csrc/wjd_bf16_packed.cu``: the gather kernels of a bfloat16 plan
   with 2-byte offsets (`_kernel`, `_kernel_mrhs` and `_kernel_hbm` on
   bfloat16 values), single, blocked and windowed, over the packed form
@@ -85,6 +88,9 @@ _FAMILIES = {
     "spmm": ("spmm_wjd", "spmm_", [_P, _P, _I64, _INT, _INT, _P]),
 }
 _SLOT_ARGS = [_P, _P, _P]           # data, brow, diag_u
+# roll entry points built from another family's source: the direct bf16
+# roll SpMV shares the windowed bf16 roll body
+_ROLL_LIBS = {("spmv", "bf16"): "spmv_wjd_win"}
 # the compact gather kernels: cval, coff, coff_bytes, slice_ptr, xbase, then
 # xp, y, nslices, stream (spmv) or xp, y, nslices, kc, stream (spmm)
 _COMPACT_ARGS = [_P, _P, _INT, _P, _P]
@@ -136,6 +142,7 @@ def _call(lib: str, name: str, argtypes, counter: str, xp: torch.Tensor,
 def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
     """Launch roll kernel wjd_<family>_roll_<tag> on the plan's planes."""
     lib, prefix, tail = _FAMILIES[family]
+    lib = _ROLL_LIBS.get((family, tag), lib)
     _call(lib, f"wjd_{family}_roll_{tag}", _SLOT_ARGS + tail,
           f"{prefix}roll_{tag}", xp, A.data.data_ptr(), A.brow.data_ptr(),
           A.diag_u.data_ptr(), *args)
@@ -415,10 +422,20 @@ def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
                              f"{device}")
 
 
+def _check_bf16_roll_x(xp: torch.Tensor) -> None:
+    """The bf16 roll body reads x 16 bytes a thread: refuse an xp off a
+    16-byte boundary (never a fall-back to the plain version)."""
+    if xp.data_ptr() % 16:
+        raise ValueError("the bf16 roll kernel reads x 16 bytes a thread: "
+                         "padded x must be 16-byte aligned")
+
+
 def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     """Slot product through the direct kernel (CUDA tensors only): over the
     slot planes in roll mode, over the compact or the packed form in
-    gather mode."""
+    gather mode. The bf16 roll kernel reads x 16 bytes a thread, from
+    32-bit offsets brow*128 + u: xp must be 16-byte aligned and xp_len
+    below 2**31 (a direct plan's x is at most X_VMEM_BUDGET bytes)."""
     compact = A.kernel_mode == "gather"
     tag = _check_operands(A, xp, compact)
     if tuple(xp.shape) != (A.xp_len,):
@@ -428,8 +445,13 @@ def slots_kernel(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     if compact:
         _launch_compact("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(),
                         A.xbase.numel())
-    else:
-        _launch("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K)
+        return y
+    if tag == "bf16":
+        _check_bf16_roll_x(xp)
+        if A.xp_len >= 1 << 31:
+            raise ValueError(f"the bf16 roll kernel stages 32-bit offsets: "
+                             f"xp_len={A.xp_len} passes 2**31")
+    _launch("spmv", A, tag, xp, xp.data_ptr(), y.data_ptr(), Tp, K)
     return y
 
 
@@ -451,10 +473,8 @@ def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
                          "one entry per step of `group` tiles")
     y = torch.empty((Tp, 8, 128), dtype=xp.dtype, device=xp.device)
     if not compact:
-        if tag == "bf16" and xp.data_ptr() % 16:
-            raise ValueError("the windowed bf16 roll kernel reads x 16 "
-                             "bytes a thread: padded x must be 16-byte "
-                             "aligned")
+        if tag == "bf16":
+            _check_bf16_roll_x(xp)
         _launch("spmv_win", A, tag, xp, wb.data_ptr(), xp.data_ptr(),
                 y.data_ptr(), Tp, K, A.group, A.win_rows)
         return y

@@ -22,7 +22,9 @@ the median is printed):
         mbarriers, so each line of x comes from L2 once a block and the
         gathers hit shared memory (needs every two consecutive waves' x
         span to fit the ring);
-  SpMM  KC = 16, the same three through the package, and spmm_scalar, the
+  SpMM  KC = 16, the same three through the package (the compact bf16
+        SpMM is csrc/spmm_wjd.cu's raw-value body, 4 ranks a group, since
+        it replaced the template's bf16 instantiation), and spmm_scalar, the
         packed SpMM with X gathered as the compact kernel gathers it: one
         lane a column, 2 rows a pass, 4-byte loads of X (one shuffle a row:
         the packed word).
@@ -406,7 +408,7 @@ def main():
     runs = {"spmm_gather_f32 compact (f32 plan)": (
                 lambda: k.slots_kernel_mrhs(W32, Xp32),
                 k.slots_plain_compact_mrhs(W32, Xp32)),
-            "spmm_gather_bf16 compact (before)": (
+            "spmm_gather_bf16 compact": (
                 lambda: k.slots_kernel_mrhs(Wc, Xp),
                 k.slots_plain_compact_mrhs(Wc, Xp)),
             "spmm_gather_bf16 packed (shipped)": (

@@ -968,6 +968,94 @@ def test_windowed_bf16_roll_kernel(cuda_device, name, monkeypatch):
         kernels.slots_kernel_windowed(W, moved)
 
 
+@pytest.mark.parametrize("name", sorted(ROLL_BF16))
+def test_direct_bf16_roll_kernel(cuda_device, name):
+    """The direct bf16 roll kernel (the windowed bf16 roll body with no
+    window) against its plain version at 1e-5, on direct plans whose
+    diag_u covers every residue mod 4, with K = 7 and K = 150 (two staging
+    batches) and a ragged last tile; each column of the bf16 roll SpMM is
+    its product bit for bit (both sum the slots in order with FMA); the
+    entry point and rt.spmv launch it once a call and no other counter
+    moves; an x off a 16-byte boundary is refused and launches nothing."""
+    offsets, kw = ROLL_BF16[name]
+    W = _on_card(from_csr(_diagonals(offsets), values_dtype="bfloat16",
+                          kernel_mode="roll", split_dia=False, **kw))
+    K = W.brow.shape[1]
+    assert not windowed(W, torch.float32) and W.shape[0] % 1024
+    assert K % 4 and K == len(offsets)
+    assert set((W.diag_u & 3).unique().tolist()) == {0, 1, 2, 3}
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    xp = kernels.pad_x(W, x)
+    before = dict(kernels.launches)
+    y = kernels.slots_kernel(W, xp)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, "roll_bf16": before["roll_bf16"] + 1}
+    assert _rel(y, kernels.slots_plain(W, xp)) <= tol
+    before = dict(kernels.launches)
+    y = rt.spmv(W, x)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, "roll_bf16": before["roll_bf16"] + 1}
+    assert _rel(y, kernels.wjd_reference(W, x)) <= tol
+    X = _x(W.shape[1] * 4, torch.float32, cuda_device).view(-1, 4)
+    xq = kernels.pad_x(W, X, 4)
+    Y = kernels.slots_kernel_mrhs(W, xq)
+    for j in range(4):
+        assert torch.equal(Y[:, j], kernels.slots_kernel(
+            W, xq[:, j].contiguous()).reshape(-1)), j
+    moved = torch.empty(xp.numel() + 1, dtype=torch.float32,
+                        device=cuda_device)[1:]
+    moved.copy_(xp)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.slots_kernel(W, moved)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("coff_dtype", [np.int32, np.uint16])
+def test_compact_bf16_spmm_kernel(cuda_device, coff_dtype):
+    """The compact bf16 SpMM (values held raw, 4 ranks a group) at KC 4, 8
+    and 16 on the ragged plan's compact form: slices of every width mod 4,
+    empty slices, a ragged last tile. With 4-byte offsets, the form a bf16
+    plan whose offsets pass 16 bits keeps; with 2-byte offsets, which no
+    plan keeps (the offset width alone packs it) but the kernel serves.
+    Against its plain version over the form and the padded slot product; a
+    column is the single compact kernel's product bit for bit; the entry
+    point and rt.spmv on 16 columns launch it once and no other counter
+    moves."""
+    Wp = from_csr(_ragged_rows(), values_dtype="bfloat16", split_dia=False,
+                  kernel_mode="gather")
+    assert Wp.compact_form == "packed"
+    c = wjd_mod.unpack_bf16_slices(Wp.cpack.numpy(), Wp.slice_ptr.numpy(),
+                                   Wp.xbase.numpy())
+    W = _on_card(dataclasses.replace(
+        Wp, cpack=None, slice_ptr=torch.from_numpy(c["slice_ptr"]),
+        cval=torch.from_numpy(c["cval"]).to(torch.bfloat16),
+        coff=torch.from_numpy(c["coff"].astype(coff_dtype))))
+    assert W.compact_form == "compact"
+    width = np.diff(c["slice_ptr"]) // 32
+    assert (width == 0).any() and set((width % 4).tolist()) == {0, 1, 2, 3}
+    key, tol = "spmm_gather_bf16_compact", TOL[torch.float32]
+    for kc in (4, 8, 16):
+        X = _x(W.shape[1] * kc, torch.float32, cuda_device).view(-1, kc)
+        xq = kernels.pad_x(W, X, kc)
+        before = dict(kernels.launches)
+        Y = kernels.slots_kernel_mrhs(W, xq)
+        torch.cuda.synchronize()
+        assert kernels.launches == {**before, key: before[key] + 1}
+        assert _rel(Y, kernels.slots_plain_compact_mrhs(W, xq)) <= tol
+        assert _rel(Y, kernels.slots_plain_mrhs(W, xq)) <= tol
+        for j in range(kc):
+            assert torch.equal(Y[:, j], kernels.slots_kernel(
+                W, xq[:, j].contiguous()).reshape(-1)), (kc, j)
+    X = _x(W.shape[1] * 16, torch.float32, cuda_device).view(-1, 16)
+    before = dict(kernels.launches)
+    Y = rt.spmv(W, X)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, key: before[key] + 1}
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= tol
+
+
 # the preconditioners of the rest of the stack: name -> (operator, build)
 PRECONDS = {
     "sgs": ("lap", lambda P, A: P.sgs(A)),
