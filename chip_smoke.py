@@ -35,12 +35,14 @@ each went through its kernels:
   M    MixedPrecisionDC: bench.py's mpdc row (3 outer iterations), then
        laplacian_3d(100) f64: the outer residual through the f64 kernel,
        the inner CG through the f32 copy's
-  N    bfloat16 values and the rest of the Krylov family. N1: the eleven
-       bf16 kernels on bf16 plans of the f32 operators of C, H and I
+  N    bfloat16 values and the rest of the Krylov family. N1: every
+       bf16 kernel on bf16 plans of the f32 operators of C, H and I
        (direct, blocked right-hand sides, windowed; each gather plan, the
        direct and the windowed one, in the packed form, then in the
-       compact form with 4-byte offsets, single and 16 columns, each row
-       naming the form and the kernel), each against its plain version,
+       compact form with 4-byte offsets, then with its offsets moved past
+       16 bits in the packed24 form, held to the compact kernel on the
+       same product too; single and 16 columns, each row naming the form
+       and the kernel), each against its plain version,
        against the f32 plan's product, its bound and the library call,
        through rt.spmv. N2: BiCGStab, BiCGStab(2),
        QMRCGStab, IDR(4) on convection_diffusion_2d(1024) f64 and CR, FCG,
@@ -153,6 +155,9 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 BF16_TOL = 1e-5
 BF16_VS_F32_TOL = 1e-2
 N_COLS = 16                 # phase N1: columns of the blocked products
+WIDEN = 1 << 16             # N1: a direct slice's base lowered by this many
+WIDEN_ROWS = 512            # elements, a step window widened by this many
+                            # rows below: offsets past 16 bits (packed24)
 N2_CD_N = 1024              # phase N2: convection_diffusion_2d(1024) f64
 N2_LAP_N = 100              # and laplacian_3d(100) f64
 N2_MAX_ITER = 1000          # the samples' settings (Chebyshev: 2000)
@@ -294,7 +299,8 @@ TPU = "rocalution_tpu/ops/pallas/spmv_wjd.py:"
 # replace the same kernels run on bfloat16 values. The bf16 gather kernels
 # go by form: gather_bf16, spmm_gather_bf16 and win_gather_bf16 are the
 # packed form's (a bf16 plan with 2-byte offsets, direct or windowed), the
-# *_compact rows the compact form's (4-byte offsets).
+# *_packed24 rows the packed24 form's (offsets below 2**24: a high byte a
+# word), the *_compact rows the compact form's (4-byte offsets).
 KERNELS = {
     "roll_f64": ("wjd_spmv_roll_f64", "spmv_wjd.cu", 206),
     "gather_f64": ("wjd_spmv_gather_f64", "spmv_wjd.cu", 480),
@@ -319,6 +325,12 @@ KERNELS = {
                         "wjd_bf16_packed.cu", 310),
     "win_gather_bf16_compact": ("wjd_spmv_win_gather_bf16",
                                 "spmv_wjd_win.cu", 310),
+    "gather_bf16_packed24": ("wjd_spmv_gather_bf16_packed24",
+                             "wjd_bf16_packed.cu", 137),
+    "spmm_gather_bf16_packed24": ("wjd_spmm_gather_bf16_packed24",
+                                  "wjd_bf16_packed.cu", 448),
+    "win_gather_bf16_packed24": ("wjd_spmv_win_gather_bf16_packed24",
+                                 "wjd_bf16_packed.cu", 310),
 }
 TAG = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -997,8 +1009,9 @@ def plan_key(W, family=None):
     if family is None:
         family = "win_" if windowed(W, W.x_dtype) else ""
     key = f"{family}{W.kernel_mode}_{TAG[W.dtype]}"
-    if W.dtype == torch.bfloat16 and W.compact_form == "compact":
-        key += "_compact"
+    if W.dtype == torch.bfloat16 and W.compact_form in ("compact",
+                                                         "packed24"):
+        key += "_" + W.compact_form
     return key
 
 
@@ -1025,6 +1038,10 @@ def form_text(W):
     elements (words of the packed form) a slot entry."""
     stored = W.cval if W.cpack is None else W.cpack
     per = stored.numel() / max(W.nnz - W.spill_row.numel(), 1)
+    if W.chi is not None:
+        return (f"packed24 form {stored.numel()} words and high bytes, "
+                f"{per:.3f} a slot entry (bf16 value | offset bits 0-15, "
+                "a byte of bits 16-23)")
     if W.cpack is not None:
         return (f"packed form {stored.numel()} words, {per:.3f} a slot "
                 "entry (bf16 value | 2-byte offset)")
@@ -1730,12 +1747,13 @@ def bf16_copy(rt, A, attach_kw):
     return B, time.perf_counter() - t0
 
 
-def bf16_row(rt, kernels, totals, tag, A, B, key, made):
+def bf16_row(rt, kernels, totals, tag, A, B, key, made, twin=None):
     """One bf16 single-RHS kernel (direct or windowed) on B's plan: against
     its plain version and the f32 plan's product (A's), timed beside the
     f32 kernel on the same x, its bound and the library call; then the
     main path, rt.spmv(B, x) with an f32 and a bf16 x. `made` says how
-    B's plan was made."""
+    B's plan was made. `twin`, a CSR whose plan is the same product in
+    another form: its kernel too, held to this one and timed."""
     from rocalution_tpu_torch.formats.wjd import windowed
 
     W, W32 = B._wjd_cache, A._wjd_cache
@@ -1760,6 +1778,8 @@ def bf16_row(rt, kernels, totals, tag, A, B, key, made):
     p_ms = median_ms(lambda: plain(W, xp))
     lib_ms, lib_note = library_bf16_ms(A, x)
     b = bounds(W, kernels, compact=gather, through_windows=win and gather)
+    twin_text = "" if twin is None else twin_line(
+        kernels, key, twin._wjd_cache, launch, launch(W, xp), x)
     with Counted(kernels, totals) as c:
         y1 = rt.spmv(B, x)
         y2 = rt.spmv(B, x.to(torch.bfloat16))
@@ -1781,12 +1801,28 @@ def bf16_row(rt, kernels, totals, tag, A, B, key, made):
         f"vs an f32 one {rel_x:.3e} (norm-wise) | kernel {k_ms * 1e3:.1f} us "
         f"(the f32 plan's kernel on the same x {k32_ms * 1e3:.1f} us), "
         f"{bounds_text(b)}, plain {p_ms * 1e3:.1f} us, {lib_note} "
-        f"{lib_ms * 1e3:.1f} us | rt.spmv(B, x): {c.got[key]} launches")
+        f"{lib_ms * 1e3:.1f} us{twin_text} | rt.spmv(B, x): {c.got[key]} "
+        "launches")
     return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
                   "library_ms": lib_ms, **b}}
 
 
-def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
+def twin_line(kernels, key, Wt, launch, y, X):
+    """Text of a kernel on the same product in another form (Wt) than the
+    row's: launched on X padded for Wt, held to the row's kernel's y at
+    BF16_TOL, and timed."""
+    cols = X.shape[1] if X.dim() == 2 else 0
+    xt = kernels.pad_x(Wt, X, cols)
+    fam = "spmm_" if cols else None
+    _, rel = norm_err(y, launch(Wt, xt), f"{key} vs {plan_key(Wt, fam)}",
+                      BF16_TOL)
+    t_ms = median_ms(lambda: launch(Wt, xt))
+    return (f" | the same product through {KERNELS[plan_key(Wt, fam)][0]} "
+            f"({form_text(Wt)}): vs this kernel {rel:.3e} (tol "
+            f"{BF16_TOL:g}), {t_ms * 1e3:.1f} us")
+
+
+def bf16_spmm_row(rt, kernels, totals, tag, A, B, key, twin=None):
     """The bf16 SpMM kernel on N_COLS columns of row-major X, as bf16_row
     holds the single-RHS ones; the main path rt.spmv(B, X)."""
     W, W32 = B._wjd_cache, A._wjd_cache
@@ -1806,6 +1842,9 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
     p_ms = median_ms(lambda: plain(W, xp))
     lib_ms, lib_note = library_bf16_ms(A, X)
     b = bounds(W, kernels, N_COLS, compact=gather)
+    twin_text = "" if twin is None else twin_line(
+        kernels, key, twin._wjd_cache, kernels.slots_kernel_mrhs,
+        kernels.slots_kernel_mrhs(W, xp), X)
     with Counted(kernels, totals) as c:
         Y = rt.spmv(B, X)
     if c.got[key] != 1 or sum(c.got.values()) != 1:
@@ -1818,46 +1857,113 @@ def bf16_spmm_row(rt, kernels, totals, tag, A, B, key):
         f"(tol {BF16_TOL:g}), vs the f32 plan {rel_32:.3e} (tol "
         f"{BF16_VS_F32_TOL:g}) | kernel {k_ms * 1e3:.1f} us (the f32 plan's "
         f"{k32_ms * 1e3:.1f} us), {bounds_text(b)}, plain "
-        f"{p_ms * 1e3:.1f} us, {lib_note} {lib_ms * 1e3:.1f} us | "
-        f"rt.spmv(B, X): {c.got[key]} launch")
+        f"{p_ms * 1e3:.1f} us, {lib_note} {lib_ms * 1e3:.1f} us{twin_text} "
+        f"| rt.spmv(B, X): {c.got[key]} launch")
     return {key: {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
                   "library_ms": lib_ms, **b}}
 
 
-def compact_bf16_copy(A, B):
-    """A CSR on A's arrays whose plan is B's packed bf16 plan in the
-    compact form with 4-byte offsets: the form, and so the kernels, that a
-    bf16 plan whose offsets pass 16 bits takes (formats/wjd.py), here at
-    the size of the packed plan; the seconds it took. The compact arrays
-    are the packed form unpacked on the host (`unpack_bf16_slices`, which
-    gives `compact_slices`' arrays bit for bit); a window-relative plan
-    stays window-relative, and its compact form is held to its step
-    windows as at upload (`_check_compact_windows`)."""
-    from rocalution_tpu_torch.formats.base import set_host_cache
-    from rocalution_tpu_torch.formats.wjd import (_check_compact_windows,
-                                                  unpack_bf16_slices)
+def unpacked(W):
+    """The compact arrays (`compact_slices`' bit for bit) of W's packed
+    form, unpacked on the host (`unpack_bf16_slices`), and the seconds it
+    took."""
+    from rocalution_tpu_torch.formats.wjd import unpack_bf16_slices
 
-    W = B._wjd_cache
     t0 = time.perf_counter()
     c = unpack_bf16_slices(*(t.cpu().numpy() for t in (
         W.cpack, W.slice_ptr, W.xbase)))
+    return c, time.perf_counter() - t0
+
+
+def copy_with(A, W):
+    """A CSR on A's arrays (device tensors and host cache shared) whose
+    plan is W."""
+    from rocalution_tpu_torch.formats.base import set_host_cache
+
+    B = dataclasses.replace(A)
+    set_host_cache(B, **A._host_cache)
+    object.__setattr__(B, "_wjd_cache", W)
+    return B
+
+
+def window_fields(W, wb, win_rows, xp_len):
+    """The plan fields `_check_compact_windows` reads, for step windows wb
+    of win_rows rows in padded x of xp_len."""
+    return {"win_base": wb, "win_rows": win_rows, "group": W.group,
+            "xp_len": xp_len}
+
+
+def compact_copy(W, c):
+    """W's packed bf16 plan in the compact form with 4-byte offsets, c
+    (`unpacked`): the form, and so the kernels, that a bf16 plan whose
+    offsets pass 24 bits takes (formats/wjd.py), here at the size of the
+    packed plan; the seconds it took. A window-relative plan stays
+    window-relative, and its compact form is held to its step windows as
+    at upload (`_check_compact_windows`)."""
+    from rocalution_tpu_torch.formats.wjd import _check_compact_windows
+
+    t0 = time.perf_counter()
     if W.window_relative:
-        _check_compact_windows(c, {
-            "win_base": W.win_base.cpu().numpy(), "win_rows": W.win_rows,
-            "group": W.group, "xp_len": W.xp_len})
+        _check_compact_windows(c, window_fields(
+            W, W.win_base.cpu().numpy(), W.win_rows, W.xp_len))
     dev = W.cpack.device
     Wc = dataclasses.replace(
         W, cpack=None, slice_ptr=torch.from_numpy(c["slice_ptr"]).to(dev),
         cval=torch.from_numpy(c["cval"]).to(dev).to(torch.bfloat16),
         coff=torch.from_numpy(c["coff"].astype(np.int32)).to(dev))
-    Bc = dataclasses.replace(A)
-    set_host_cache(Bc, **A._host_cache)
-    object.__setattr__(Bc, "_wjd_cache", Wc)
-    return Bc, time.perf_counter() - t0
+    return Wc, time.perf_counter() - t0
+
+
+def widened(W, c):
+    """W's packed bf16 plan with its offsets moved past 16 bits: the same
+    product in the packed24 form (formats/wjd.py), which a natural plan of
+    this size would take where its slices or windows were wider. A direct
+    slice's base xbase is lowered by WIDEN elements where it stays >= 0, a
+    step's window by up to WIDEN_ROWS rows (win_base lowered, win_rows
+    raised by WIDEN_ROWS, xp_len where the last window would pass it), and
+    each real entry's offset raised by as much. From W's compact arrays c
+    (`unpacked`), packed by `pack_bf16_slices` and held, as at upload, to
+    padded x and its step windows; the seconds it took."""
+    from rocalution_tpu_torch.formats.wjd import (_check_compact_reach,
+                                                  _check_compact_windows,
+                                                  pack_bf16_slices)
+
+    t0 = time.perf_counter()
+    per = np.diff(c["slice_ptr"])
+    fields, xp_len = {}, W.xp_len
+    if W.window_relative:
+        wb = W.win_base.cpu().numpy().astype(np.int64)
+        low = np.minimum(wb, WIDEN_ROWS)
+        wb = wb - low
+        win_rows = W.win_rows + WIDEN_ROWS
+        xp_len = max(xp_len, (int(wb.max()) + win_rows) * 128)
+        steps = W.group * 32
+        shift = np.repeat(low * 128, steps)
+        fields = {"win_base": torch.from_numpy(wb.astype(np.int32)).to(
+            W.win_base.device), "win_rows": win_rows, "xp_len": xp_len}
+    else:
+        shift = np.where(c["xbase"] >= WIDEN, WIDEN, 0)
+    coff = c["coff"].astype(np.int32) + np.repeat(shift, per).astype(
+        np.int32)
+    coff[c["cval"] == 0] = 0                           # padding of short rows
+    wide = {**c, "coff": coff, "xbase": c["xbase"] - shift}
+    packed = pack_bf16_slices(wide)
+    if "chi" not in packed:
+        raise RuntimeError("N1: the widened plan's offsets stay in 16 bits")
+    if W.window_relative:
+        _check_compact_windows(packed, window_fields(
+            W, fields["win_base"].cpu().numpy(), win_rows, xp_len))
+    _check_compact_reach(packed, xp_len)
+    dev = W.cpack.device
+    Ww = dataclasses.replace(W, **fields, **{
+        k: torch.from_numpy(packed[k].view(np.int32) if k == "cpack"
+                            else packed[k]).to(dev)
+        for k in ("cpack", "chi", "slice_ptr", "xbase")})
+    return Ww, time.perf_counter() - t0
 
 
 def phase_n1(rt, kernels, totals, direct, windowed_ops, plans):
-    """The eleven bf16 kernels on bf16 plans of f32 operators that earlier
+    """Every bf16 kernel on bf16 plans of f32 operators that earlier
     phases built and planned in f32: `direct` {tag: (A, attach_kw)} of C
     and H (one roll, one gather), `windowed_ops` {tag: (A, attach_kw)} of
     I. The bf16 plans go through the plan cache at `plans`, where C and I
@@ -1865,34 +1971,44 @@ def phase_n1(rt, kernels, totals, direct, windowed_ops, plans):
     (formats/wjd.py), so the layout is not planned again. A gather plan
     takes the packed form (2-byte offsets; window-relative in I's regime);
     its compact form with 4-byte offsets then holds the compact bf16
-    kernels of the same regime. Each form of a gather plan holds its
-    single product and its SpMM (N_COLS columns; the windowed plan's
-    through xbase, which holds its step windows); a roll plan its single
-    product, and its SpMM where it is direct. Returns the kernel rows (an
-    SpMM's row is the direct plan's; the windowed plan's SpMMs are
-    printed) and the bf16 copies of `direct`."""
+    kernels of the same regime, and the same plan with its offsets moved
+    past 16 bits (`widened`) the packed24 kernels, each also held
+    to the compact kernel on the same product. Each form of a gather plan
+    holds its single product and its SpMM (N_COLS columns; the windowed
+    plan's through xbase, which holds its step windows); a roll plan its
+    single product, and its SpMM where it is direct. Returns the kernel
+    rows (an SpMM's row is the direct plan's; the windowed plan's SpMMs
+    are printed) and the bf16 copies of `direct`."""
     rows, copies = {}, {}
     for tag, (A, kw) in {**direct, **windowed_ops}.items():
         with plan_cache(plans):
             B, plan_s = bf16_copy(rt, A, kw)
         win = tag in windowed_ops
-        forms = [(B, f"planned in {plan_s:.1f} s")]
+        forms = [(B, f"planned in {plan_s:.1f} s", None)]
         if B._wjd_cache.compact_form == "packed":
-            Bc, unpack_s = compact_bf16_copy(A, B)
-            forms.append((Bc, f"its packed plan unpacked, offsets widened, "
-                              f"in {unpack_s:.1f} s"))
-        for Bf, made in forms:
+            c, unpack_s = unpacked(B._wjd_cache)
+            Wc, copy_s = compact_copy(B._wjd_cache, c)
+            Ww, wide_s = widened(B._wjd_cache, c)
+            Bc, Bw = copy_with(A, Wc), copy_with(A, Ww)
+            del c, Wc, Ww
+            forms += [(Bc, f"its packed plan unpacked, offsets widened, "
+                           f"in {unpack_s + copy_s:.1f} s", None),
+                      (Bw, f"its packed plan with offsets moved past 16 "
+                           f"bits (a slice base lowered by {WIDEN} "
+                           f"elements, or a window by up to {WIDEN_ROWS} "
+                           f"rows), in {unpack_s + wide_s:.1f} s", Bc)]
+        for Bf, made, twin in forms:
             Wf = Bf._wjd_cache
             if plan_key(Wf).startswith("win_") != win:
                 raise RuntimeError(f"N1 {tag}: the bf16 plan's kernel "
                                    f"{plan_key(Wf)} is not in the f32 "
                                    "plan's regime")
             rows.update(bf16_row(rt, kernels, totals, tag, A, Bf,
-                                 plan_key(Wf), made))
+                                 plan_key(Wf), made, twin))
             if win and Wf.kernel_mode == "roll":
                 continue
             spmm = bf16_spmm_row(rt, kernels, totals, tag, A, Bf,
-                                 plan_key(Wf, "spmm_"))
+                                 plan_key(Wf, "spmm_"), twin)
             if not win:
                 rows.update(spmm)
         if not win:

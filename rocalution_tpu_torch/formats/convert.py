@@ -134,8 +134,9 @@ def to_csr(mat) -> CSR:
         if mat.data is None:
             fields = ("slice_ptr", "xbase")
             if mat.cpack is not None:      # the packed form of a bf16 plan
-                c = unpack_bf16_slices(*(get_host(mat, f)
-                                         for f in ("cpack",) + fields))
+                c = unpack_bf16_slices(
+                    *(get_host(mat, f) for f in ("cpack",) + fields),
+                    chi=None if mat.chi is None else get_host(mat, "chi"))
                 form = tuple(c[f] for f in ("cval", "coff") + fields)
             else:
                 form = (_host_values(mat, "cval"),

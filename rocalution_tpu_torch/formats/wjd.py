@@ -49,17 +49,28 @@ what the direct gather kernels read on the card:
   ``win_rows*128 <= 65,536``; a wider window may take int32 offsets. The
   direct kernels read the same form through ``xbase``.
 
-A bfloat16 plan whose offsets are uint16, direct or window-relative,
-takes the **packed** form instead (`pack_bf16_slices`, ``cpack``): one
-32-bit word a stored element, the value's bfloat16 bits in its low half
-and its offset in its high half, so that a lane reads 4 ranks of its row
-with one 16-byte load: word (j, lane) of a slice at ``slice_ptr[slice] +
-(j // 4)*128 + lane*4 + j % 4``, a slice's width padded to a multiple of 4
-with zero words. ``slice_ptr`` counts words, ``xbase`` and
-``window_relative`` are the compact form's, and ``cval``/``coff`` are
-None. A bfloat16 plan with int32 offsets keeps the compact form: the
-offset width alone chooses the form, and the form and the regime choose
-the kernel.
+A bfloat16 plan, direct or window-relative, takes one of three forms,
+chosen by the width of its offsets alone (`_packs`); the form and the
+regime then choose the kernel:
+
+* offsets below 2**16: the **packed** form (`pack_bf16_slices`,
+  ``cpack``): one 32-bit word a stored element, the value's bfloat16 bits
+  in its low half and its offset in its high half, so that a lane reads 4
+  ranks of its row with one 16-byte load: word (j, lane) of a slice at
+  ``slice_ptr[slice] + (j // 4)*128 + lane*4 + j % 4``, a slice's width
+  padded to a multiple of 4 with zero words. ``slice_ptr`` counts words,
+  ``xbase`` and ``window_relative`` are the compact form's, and
+  ``cval``/``coff`` are None;
+* offsets below 2**24: the packed form with a **high byte** a word
+  (``packed24``): the same words, holding the offset's low 16 bits, and a
+  plane ``chi`` (uint8, one byte a word at the word's own index, padding
+  words 0) with its bits 16-23, so that a lane reads 4 ranks with one
+  16-byte load of words and one 4-byte load of their high bytes: 5 bytes
+  a stored element. A direct plan's offsets lie below ``xp_len``, at most
+  X_VMEM_BUDGET bytes of f32 x; a window-relative plan's below
+  ``win_rows*128``;
+* wider offsets (a window of 2**24 elements of x or more): the compact
+  form with int32 offsets.
 
 The padded ``data`` / ``uloc`` planes of a gather-mode plan stay on the
 host only (None on the WJD) unless the WJD lives on the CPU.
@@ -81,6 +92,7 @@ from .base import MatrixBase, to_device
 TILE = 1024          # rows per tile
 SLICE = 32           # rows per slice of the compact form: one warp
 PACK = 4             # ranks of a row in one 16-byte load of the packed form
+PACK_REACH = 1 << 24  # offsets the packed form holds with its high byte
 
 
 def _is_bf16(values_dtype) -> bool:
@@ -144,6 +156,9 @@ class WJD(MatrixBase):
     # packed form of a bfloat16 plan (`pack_bf16_slices`): (words,) int32,
     # bfloat16 bits | offset << 16; slice_ptr then counts words
     cpack: Optional[torch.Tensor] = None
+    # (words,) uint8: bits 16-23 of each word's offset, where an offset of
+    # the packed form passes 16 bits (the packed24 form), else None
+    chi: Optional[torch.Tensor] = None
 
     @property
     def _values(self) -> torch.Tensor:
@@ -176,10 +191,11 @@ class WJD(MatrixBase):
     @property
     def compact_form(self) -> Optional[str]:
         """Which form the gather kernels read: "packed" (a bfloat16 plan
-        with uint16 offsets, direct or window-relative), "compact", or
+        with 16-bit offsets, direct or window-relative), "packed24" (the
+        same with a high byte a word: offsets below 2**24), "compact", or
         None for a roll-mode plan."""
         if self.cpack is not None:
-            return "packed"
+            return "packed" if self.chi is None else "packed24"
         return None if self.cval is None else "compact"
 
     @property
@@ -746,19 +762,25 @@ def compact_entries(cval, coff, slice_ptr, xbase):
 
 def pack_bf16_slices(compact: dict) -> dict:
     """The packed form (module docstring) of the compact slice form of a
-    bfloat16 plan whose offsets are uint16, direct or window-relative:
-    numpy arrays ``cpack`` (uint32 words, the value's bfloat16 bits |
-    offset << 16), ``slice_ptr`` (in words) and ``xbase`` (the compact
-    form's, so a window-relative form keeps its step windows). A row's
-    terms keep their ranks, so a row sums the same terms in the same
-    order, plus up to 3 zero words. The values are the plan's host form
-    of bfloat16 (f32 arrays holding bfloat16 values), whose low 16 bits
-    are zero."""
+    bfloat16 plan whose offsets lie below 2**24 (uint16, or int32 below
+    PACK_REACH), direct or window-relative: numpy arrays ``cpack`` (uint32
+    words, the value's bfloat16 bits | the offset's low 16 bits << 16),
+    ``slice_ptr`` (in words) and ``xbase`` (the compact form's, so a
+    window-relative form keeps its step windows), and, where an offset
+    passes 16 bits, ``chi`` (uint8, the offset's bits 16-23 at the word's
+    own index, padding words 0). A row's terms keep their ranks, so a row
+    sums the same terms in the same order, plus up to 3 zero words. The
+    values are the plan's host form of bfloat16 (f32 arrays holding
+    bfloat16 values), whose low 16 bits are zero."""
     cval, coff, ptr = compact["cval"], compact["coff"], compact["slice_ptr"]
-    if cval.dtype != np.float32 or coff.dtype != np.uint16:
+    if cval.dtype != np.float32 or coff.dtype not in (np.uint16, np.int32):
         raise ValueError(f"the packed form takes f32-held bfloat16 values "
-                         f"and uint16 offsets, got {cval.dtype}, "
+                         f"and uint16 or int32 offsets, got {cval.dtype}, "
                          f"{coff.dtype}")
+    lo, hi = int(coff.min(initial=0)), int(coff.max(initial=0))
+    if lo < 0 or hi >= PACK_REACH:
+        raise ValueError(f"the packed form holds offsets in [0, 2**24), got "
+                         f"{lo} .. {hi}")
     bits = np.ascontiguousarray(cval).view(np.uint32)
     if (bits & 0xFFFF).any():
         raise ValueError("the packed form takes values that bfloat16 holds")
@@ -770,27 +792,40 @@ def pack_bf16_slices(compact: dict) -> dict:
     # word (j, lane) lies at (j // 4)*128 + lane*4 + j % 4
     j = np.arange(len(cval) // SLICE, dtype=np.int64) - np.repeat(
         ptr[:-1] // SLICE, width)
-    ranks = np.zeros((int(pptr[-1]) // SLICE, SLICE), np.uint32)
-    ranks[np.repeat(pptr[:-1] // SLICE, width) + j] = (
-        (bits >> 16) | (coff.astype(np.uint32) << 16)).reshape(-1, SLICE)
-    cpack = ranks.reshape(-1, PACK, SLICE).transpose(0, 2, 1).reshape(-1)
-    return dict(cpack=cpack, slice_ptr=pptr, xbase=compact["xbase"])
+    at = np.repeat(pptr[:-1] // SLICE, width) + j
+    rows = int(pptr[-1]) // SLICE
+
+    def lay(words, dtype):
+        ranks = np.zeros((rows, SLICE), dtype)
+        ranks[at] = words.reshape(-1, SLICE)
+        return ranks.reshape(-1, PACK, SLICE).transpose(0, 2, 1).reshape(-1)
+
+    off = coff.astype(np.uint32)
+    out = dict(cpack=lay((bits >> 16) | (off << 16), np.uint32),
+               slice_ptr=pptr, xbase=compact["xbase"])
+    if hi >= 1 << 16:
+        out["chi"] = lay((off >> 16).astype(np.uint8), np.uint8)
+    return out
 
 
-def unpack_bf16_slices(cpack, slice_ptr, xbase) -> dict:
+def _rank_rows(words):
+    """The words (or high bytes) of a packed form, each rank a row of 32
+    lanes, rank-major as in the compact form: a slice is whole groups of
+    128, each 4 ranks of 32 lanes stored lane-major, so one transpose."""
+    return np.ascontiguousarray(np.asarray(words).reshape(
+        -1, SLICE, PACK).transpose(0, 2, 1)).reshape(-1, SLICE)
+
+
+def unpack_bf16_slices(cpack, slice_ptr, xbase, chi=None) -> dict:
     """The compact slice form (``cval`` as f32-held bfloat16 values,
-    ``coff`` uint16, ``slice_ptr``, ``xbase``) that `pack_bf16_slices`
-    packed, from numpy arrays of the packed form. A slice is whole groups
-    of 128 words, each 4 ranks of 32 lanes stored lane-major, so one
-    transpose of the words makes every rank a row of 32 lanes, rank-major
-    as in the compact form; a slice's width is its highest rank with a
-    nonzero value plus one (the compact form stores nonzero values only,
-    and its longest row fills its last rank), and its padding ranks are
-    dropped."""
-    cpack = np.asarray(cpack).view(np.uint32)
+    ``coff``, ``slice_ptr``, ``xbase``) that `pack_bf16_slices` packed,
+    from numpy arrays of the packed form: ``coff`` uint16, or int32 where
+    the form carries its high bytes `chi`. A slice's width is its highest
+    rank with a nonzero value plus one (the compact form stores nonzero
+    values only, and its longest row fills its last rank), and its
+    padding ranks are dropped."""
+    ranks = _rank_rows(np.asarray(cpack).view(np.uint32))
     pptr = np.asarray(slice_ptr, np.int64)
-    ranks = np.ascontiguousarray(cpack.reshape(-1, SLICE, PACK).transpose(
-        0, 2, 1)).reshape(-1, SLICE)
     rptr = pptr // SLICE                    # rank rows, padding included
     per = np.diff(rptr)
     j = np.arange(len(ranks), dtype=np.int64) - np.repeat(rptr[:-1], per)
@@ -800,20 +835,37 @@ def unpack_bf16_slices(cpack, slice_ptr, xbase) -> dict:
         width[full] = np.maximum.reduceat(
             np.where((ranks & 0xFFFF).any(axis=1), j + 1, 0),
             rptr[:-1][full])
-    rows = ranks[j < np.repeat(width, per)].reshape(-1)
+    keep = j < np.repeat(width, per)
+    rows = ranks[keep].reshape(-1)
+    coff = (rows >> 16).astype(np.uint16)
+    if chi is not None:
+        coff = coff.astype(np.int32) | (_rank_rows(np.asarray(
+            chi, np.uint8))[keep].reshape(-1).astype(np.int32) << 16)
     ptr = np.zeros_like(pptr)
     np.cumsum(width * SLICE, out=ptr[1:])
-    return dict(cval=(rows << 16).view(np.float32),
-                coff=(rows >> 16).astype(np.uint16), slice_ptr=ptr,
-                xbase=np.asarray(xbase, np.int64))
+    return dict(cval=(rows << 16).view(np.float32), coff=coff,
+                slice_ptr=ptr, xbase=np.asarray(xbase, np.int64))
 
 
 def _packs(plan: dict, compact: dict) -> bool:
-    """Does this plan take the packed form? A bfloat16 plan whose compact
-    offsets are uint16, direct or window-relative: the offset width alone
+    """Does this plan take the packed form (with its high bytes where an
+    offset passes 16 bits)? A bfloat16 plan whose compact offsets lie
+    below 2**24, direct or window-relative: the offset width alone
     decides (module docstring)."""
+    coff = compact["coff"]
     return (plan.get("value_dtype") == "bfloat16"
-            and compact["coff"].dtype == np.uint16)
+            and (coff.dtype == np.uint16
+                 or int(coff.max(initial=0)) < PACK_REACH))
+
+
+def _form_offsets(compact: dict) -> np.ndarray:
+    """The offsets of a compact form, or of a packed one: a word's high
+    half, with its high byte where the form carries ``chi``."""
+    if "cpack" not in compact:
+        return compact["coff"]
+    off = compact["cpack"] >> 16
+    chi = compact.get("chi")
+    return off if chi is None else off | chi.astype(np.uint32) << 16
 
 
 def _check_compact_reach(compact: dict, xp_len: int) -> None:
@@ -821,8 +873,7 @@ def _check_compact_reach(compact: dict, xp_len: int) -> None:
     compact or the packed form lies in [0, xp_len): the CUDA kernels read
     x without bounds checks."""
     ptr, xbase = compact["slice_ptr"], compact["xbase"]
-    off = (compact["cpack"] >> 16 if "cpack" in compact
-           else compact["coff"])
+    off = _form_offsets(compact)
     if not len(off):
         return
     full = np.diff(ptr) > 0
@@ -836,9 +887,8 @@ def _check_compact_reach(compact: dict, xp_len: int) -> None:
 
 def _check_compact_windows(compact: dict, plan: dict) -> None:
     """The compact twin of `_check_windows`, for a window-relative compact
-    or packed form (a word's offset is its high half, as in
-    `_check_compact_reach`): raise ValueError unless the base of every
-    slice of grid step i is win_base[i]*128, every offset lies in
+    or packed form (`_form_offsets`): raise ValueError unless the base of
+    every slice of grid step i is win_base[i]*128, every offset lies in
     [0, win_rows*128), and the last window ends inside padded x. The
     windowed gather kernels read x from the step's window without bounds
     checks."""
@@ -846,8 +896,7 @@ def _check_compact_windows(compact: dict, plan: dict) -> None:
     win_rows, group = int(plan["win_rows"]), int(plan["group"])
     per_step = group * (TILE // SLICE)
     xbase = compact["xbase"]
-    off = (compact["cpack"] >> 16 if "cpack" in compact
-           else compact["coff"])
+    off = _form_offsets(compact)
     if (group <= 0 or xbase.shape != (len(wb) * per_step,)
             or not np.array_equal(xbase, np.repeat(wb * 128, per_step))):
         raise ValueError("bad WJD plan: the compact slice bases are not the "
@@ -895,7 +944,8 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
     the plan has per-step windows, its step's window. A gather-mode plan
     is compacted here (`compact_slices`), window-relative where the
     windowed gather kernel will serve it, packed where it is a bfloat16
-    plan with uint16 offsets (`pack_bf16_slices`), and its form is checked
+    plan with offsets below 2**24 (`pack_bf16_slices`, with its high bytes
+    where an offset passes 16 bits), and its form is checked
     against padded x and its step windows; its padded planes go along only
     to the CPU."""
     if np.asarray(plan["brow"]).size:
@@ -934,6 +984,8 @@ def _plan_to_wjd(plan: dict, device) -> WJD:
         coff=put("coff"),
         cpack=(None if plan.get("cpack") is None
                else to_device(plan["cpack"].view(np.int32), device)),
+        chi=(None if plan.get("chi") is None
+             else to_device(plan["chi"], device)),
         slice_ptr=put("slice_ptr", np.int64),
         xbase=put("xbase", np.int64),
         window_relative=bool(plan.get("window_relative", False)),

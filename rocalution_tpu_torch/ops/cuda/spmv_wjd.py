@@ -19,12 +19,15 @@ kernels are templated CUDA kernels in three sources here:
   compact form, roll mode on the slot planes; the bf16 gather kernel holds
   its values raw, 4 ranks ahead;
 * ``csrc/wjd_bf16_packed.cu``: the gather kernels of a bfloat16 plan
-  with 2-byte offsets (`_kernel`, `_kernel_mrhs` and `_kernel_hbm` on
-  bfloat16 values), single, blocked and windowed, over the packed form
-  (formats/wjd.py:`pack_bf16_slices`); they count as ``gather_bf16``,
-  ``spmm_gather_bf16`` and ``win_gather_bf16``. The compact bf16 kernels
-  of the other sources serve a bfloat16 plan with 4-byte offsets, and
-  count as ``gather_bf16_compact``, ``spmm_gather_bf16_compact`` and
+  whose offsets lie below 2**24 (`_kernel`, `_kernel_mrhs` and
+  `_kernel_hbm` on bfloat16 values), single, blocked and windowed, over
+  the packed form (formats/wjd.py:`pack_bf16_slices`). On 16-bit offsets
+  they count as ``gather_bf16``, ``spmm_gather_bf16`` and
+  ``win_gather_bf16``; with the form's high bytes (``chi``, the packed24
+  form) as ``gather_bf16_packed24``, ``spmm_gather_bf16_packed24`` and
+  ``win_gather_bf16_packed24``. The compact bf16 kernels of the other
+  sources serve a bfloat16 plan whose offsets pass 24 bits, and count as
+  ``gather_bf16_compact``, ``spmm_gather_bf16_compact`` and
   ``win_gather_bf16_compact``.
 
 See those files for the designs. The wrappers pad x, launch on the current
@@ -65,6 +68,8 @@ launches = {
     "win_roll_bf16": 0, "win_gather_bf16": 0, "spmm_roll_bf16": 0,
     "spmm_gather_bf16": 0, "gather_bf16_compact": 0,
     "spmm_gather_bf16_compact": 0, "win_gather_bf16_compact": 0,
+    "gather_bf16_packed24": 0, "spmm_gather_bf16_packed24": 0,
+    "win_gather_bf16_packed24": 0,
 }
 
 # columns one SpMM launch serves; the kernel is instantiated for these
@@ -100,10 +105,10 @@ _COMPACT_TAILS = {"spmv": ("spmv_wjd", "", [_P, _P, _I64, _P]),
 # win_base, xp, y, nsteps, slices a step, stream
 _WIN_COMPACT_ARGS = [_P, _P, _INT, _P, _P, _P, _P, _I64, _INT, _P]
 # the packed bf16 gather kernels: cpack, slice_ptr, xbase, then the tail
-# of the compact ones, and the same counters
+# of the compact ones; the packed24 entry points take chi after cpack
 _PACKED_ARGS = [_P, _P, _P]
 # wjd_spmv_win_gather_bf16_packed: cpack, slice_ptr, win_base, xp, y,
-# nsteps, slices a step, stream
+# nsteps, slices a step, stream (packed24: chi after cpack)
 _PACKED_WIN_ARGS = [_P, _P, _P, _P, _P, _I64, _INT, _P]
 
 
@@ -148,16 +153,28 @@ def _launch(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
           A.diag_u.data_ptr(), *args)
 
 
+def _packed_operands(A: WJD):
+    """(suffix of the entry point and its counter, argument types of the
+    form's operands, their pointers) of the packed form: the words, and
+    the high bytes where the form carries them (packed24)."""
+    if A.chi is None:
+        return "", [_P], [A.cpack.data_ptr()]
+    return "24", [_P, _P], [A.cpack.data_ptr(), A.chi.data_ptr()]
+
+
 def _launch_compact(family: str, A: WJD, tag: str, xp: torch.Tensor, *args):
     """Launch gather kernel wjd_<family>_gather_<tag> on the compact form,
     counted as <family prefix>gather_<tag> (with "_compact" after "bf16"),
     or wjd_<family>_gather_bf16_packed on the packed form, counted as
-    <family prefix>gather_bf16."""
+    <family prefix>gather_bf16 (wjd_..._packed24 on the packed24 form,
+    counted with "_packed24" after "bf16")."""
     lib, prefix, tail = _COMPACT_TAILS[family]
     counter = f"{prefix}gather_{tag}"
     if A.cpack is not None:
-        _call("wjd_bf16_packed", f"wjd_{family}_gather_bf16_packed",
-              _PACKED_ARGS + tail, counter, xp, A.cpack.data_ptr(),
+        wide, types, form = _packed_operands(A)
+        _call("wjd_bf16_packed", f"wjd_{family}_gather_bf16_packed{wide}",
+              types + _PACKED_ARGS[1:] + tail,
+              counter + ("_packed24" if wide else ""), xp, *form,
               A.slice_ptr.data_ptr(), A.xbase.data_ptr(), *args)
         return
     if tag == "bf16":
@@ -274,14 +291,17 @@ def slots_plain_compact(A: WJD, xp: torch.Tensor) -> torch.Tensor:
 
 
 def _offsets(A: WJD) -> torch.Tensor:
-    """The offsets of the packed form's words: their high halves."""
-    return (A.cpack >> 16) & 0xFFFF
+    """The offsets of the packed form's words: their high halves, with
+    bits 16-23 from the high bytes where the form carries them."""
+    off = (A.cpack >> 16) & 0xFFFF
+    return off if A.chi is None else off | (A.chi.int() << 16)
 
 
 def _packed_product(A: WJD, xp: torch.Tensor,
                     base: torch.Tensor) -> torch.Tensor:
     """Word q of slice i (formats/wjd.py:`pack_bf16_slices`) holds a
-    bfloat16 value in its low half and an offset in its high half; it
+    bfloat16 value in its low half and an offset in its high half (its
+    bits 16-23 in chi[q], where the form carries them); it
     multiplies xp[base[i] + offset] and adds to row i*32 + (q // 4) % 32
     (every slice starts at a multiple of 128 words). The value widens to
     f32 exactly. xp is (xp_len,) or row-major (xp_len, kc); returns
@@ -385,6 +405,14 @@ def _check_plan(A: WJD, device: torch.device, compact: bool) -> None:
             raise TypeError("packed WJD words must be int32")
         if A.cpack.data_ptr() % 16:
             raise ValueError("packed WJD words must be 16-byte aligned")
+        if A.chi is not None:
+            operands.append(A.chi)
+            if A.chi.dtype != torch.uint8 or A.chi.shape != A.cpack.shape:
+                raise TypeError("packed WJD high bytes must be uint8, one "
+                                "a word")
+            if A.chi.data_ptr() % 4:
+                raise ValueError("packed WJD high bytes must be 4-byte "
+                                 "aligned")
     elif compact:
         operands = [A.cval, A.coff, A.slice_ptr, A.xbase]
         if A.kernel_mode != "gather" or any(t is None for t in operands):
@@ -483,8 +511,10 @@ def slots_kernel_windowed(A: WJD, xp: torch.Tensor) -> torch.Tensor:
     _check_window_relative(A)
     per_step = A.group * (TILE // SLICE)
     if A.cpack is not None:
-        _call("wjd_bf16_packed", "wjd_spmv_win_gather_bf16_packed",
-              _PACKED_WIN_ARGS, "win_gather_bf16", xp, A.cpack.data_ptr(),
+        wide, types, form = _packed_operands(A)
+        _call("wjd_bf16_packed", f"wjd_spmv_win_gather_bf16_packed{wide}",
+              types + _PACKED_WIN_ARGS[1:],
+              "win_gather_bf16" + ("_packed24" if wide else ""), xp, *form,
               A.slice_ptr.data_ptr(), wb.data_ptr(), xp.data_ptr(),
               y.data_ptr(), wb.numel(), per_step)
         return y
@@ -673,12 +703,13 @@ def slot_bytes(A: WJD, compact: bool = False,
                through_windows: bool = False) -> int:
     """Operand bytes one kernel call streams from the plan: slot values
     with brow and diag_u (roll mode), or the compact form's values,
-    offsets, slice_ptr and xbase, or the packed form's words, slice_ptr
-    and xbase (the windowed gather kernel reads win_base in place of
-    xbase)."""
+    offsets, slice_ptr and xbase, or the packed form's words (and high
+    bytes), slice_ptr and xbase (the windowed gather kernel reads
+    win_base in place of xbase)."""
     if compact:
         base = A.win_base if through_windows else A.xbase
-        stored = (A.cval, A.coff) if A.cpack is None else (A.cpack,)
+        stored = ((A.cval, A.coff) if A.cpack is None
+                  else tuple(t for t in (A.cpack, A.chi) if t is not None))
         return sum(t.numel() * t.element_size()
                    for t in (*stored, A.slice_ptr, base))
     Tp, K = A.brow.shape

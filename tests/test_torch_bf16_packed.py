@@ -5,8 +5,8 @@ packed form (formats/wjd.py: `pack_bf16_slices`): one 32-bit word a stored
 element, bfloat16 bits | offset << 16, 4 ranks of a row in 16 consecutive
 bytes, a slice padded to a multiple of 4 ranks. Here: the packed form
 unpacked is `compact_slices`' form bit for bit (ragged and empty slices
-included); a plan with 4-byte offsets, direct or window-relative, keeps
-the compact form; the packed
+included); a plan whose offsets pass 24 bits, direct or
+window-relative, keeps the compact form; the packed
 form's plain products (single, and blocked over 16 and 20 columns) equal
 the JAX `wjd_reference` on the JAX planner's bfloat16 plan at 1e-5, as
 tests/test_torch_bf16.py holds the compact form; and an f32 CG over a
@@ -139,26 +139,34 @@ def test_packed_plan_on_the_wjd():
 
 @pytest.mark.parametrize("case", ["int32_offsets", "window_relative"])
 def test_other_bf16_plans_keep_the_compact_form(case, monkeypatch):
-    """The form is chosen by offset width alone: a bfloat16 plan with int32
-    offsets keeps the compact form (and its kernels), direct or in the
-    windowed regime, where a window of more than 65,536 elements of x
-    (win_rows*128) lets its window-relative offsets pass 16 bits."""
-    rng = np.random.default_rng(5)
-    S = sp.random(2500, 150_000, density=8 / 150_000, format="csr",
-                  random_state=rng, dtype=np.float32)
-    S.sort_indices()
+    """The form is chosen by offset width alone: a bfloat16 plan whose
+    offsets pass 24 bits keeps the compact form with int32 offsets (and its
+    kernels), direct or in the windowed regime, where a window of more
+    than 2**24 elements of x (win_rows*128) lets its window-relative
+    offsets pass 24 bits. The operator: 64 rows, each coupled to a column
+    2**24 + 2**19 further on. A direct plan's x is at most X_VMEM_BUDGET
+    bytes, so the direct case raises the budget; offsets between 16 and 24
+    bits take the packed24 form (tests/test_torch_bf16_packed24.py)."""
+    n, m = 64, (1 << 24) + (1 << 20)
+    rows = np.repeat(np.arange(n), 2)
+    cols = np.stack([np.arange(n), (1 << 24) + (1 << 19) + np.arange(n)],
+                    1).reshape(-1)
+    vals = np.random.default_rng(5).standard_normal(2 * n).astype(np.float32)
+    S = sp.csr_matrix((vals, (rows, cols)), shape=(n, m))
     A = rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
                            S.indptr.astype(np.int32), S.shape)
     if case == "window_relative":
         monkeypatch.setattr(torch_wjd, "X_VMEM_BUDGET", 1024)
         monkeypatch.setattr(torch_wjd, "_auto_group", lambda K: 1)
         monkeypatch.setattr(torch_wjd, "_auto_group_windowed", lambda K: 1)
-    W = from_csr(A, values_dtype=BF16, split_dia=False)
+    else:
+        monkeypatch.setattr(torch_wjd, "X_VMEM_BUDGET", 1 << 30)
+    W = from_csr(A, values_dtype=BF16, split_dia=False, kernel_mode="gather")
     assert W.window_relative is (case == "window_relative")
     if W.window_relative:
-        assert W.win_rows * 128 > 1 << 16
-    assert W.coff.dtype == torch.int32
-    assert W.compact_form == "compact" and W.cpack is None
+        assert W.win_rows * 128 > 1 << 24
+    assert W.coff.dtype == torch.int32 and int(W.coff.max()) >= 1 << 24
+    assert W.compact_form == "compact" and W.cpack is None and W.chi is None
     assert W.cval.dtype == torch.bfloat16
 
 

@@ -8,9 +8,11 @@ that view is its plain direct product bit for bit, and both equal the JAX
 `wjd_reference` on the JAX planner's bf16 roll plan at 1e-5 (the same f32
 products of the same bfloat16 values, summed in another order), on
 laplacian_3d(12) and on a band whose slots read x at every alignment
-(diag_u mod 4). The compact bf16 SpMM serves a bf16 plan whose offsets
-pass 16 bits: here such a plan's plain blocked product over 4, 8, 16 and
-20 columns (16 + 4 a launch each) equals the JAX `wjd_reference`, vmapped
+(diag_u mod 4). A bf16 plan whose offsets pass 16 bits takes the packed24
+form (below 2**24) and its SpMM; the compact bf16 SpMM serves the same
+plan unpacked to its compact form with int32 offsets, the form of a plan
+past 24 bits. Here both forms' plain blocked products over 4, 8, 16 and
+20 columns (16 + 4 a launch each) equal the JAX `wjd_reference`, vmapped
 over the columns, at 1e-5. The kernels themselves are checked by
 tests/test_torch_kernels.py on a card.
 """
@@ -30,7 +32,7 @@ import rocalution_tpu_torch as rt
 import rocalution_tpu_torch.formats.wjd as torch_wjd
 from rocalution_tpu.formats.wjd import from_csr as jax_from_csr
 from rocalution_tpu.ops.pallas.spmv_wjd import wjd_reference as jax_reference
-from rocalution_tpu_torch.formats.wjd import from_csr
+from rocalution_tpu_torch.formats.wjd import from_csr, unpack_bf16_slices
 from rocalution_tpu_torch.ops.cuda import spmv_wjd as kernels
 from test_torch_native import plan_cache_off  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -69,7 +71,7 @@ def _band(module):
 
 def _wide(module):
     """2,500 rows whose columns scatter over 150,000: every slice spans
-    more than 65,535 elements of x, so the plan's offsets are int32."""
+    more than 65,535 elements of x, so the plan's offsets pass 16 bits."""
     rng = np.random.default_rng(5)
     S = sp.random(2500, 150_000, density=8 / 150_000, format="csr",
                   random_state=rng)
@@ -142,15 +144,25 @@ def wide_plans():
 
 @pytest.mark.parametrize("cols", [4, 8, 16, 20])
 def test_wide_plan_blocked_product_matches_jax_reference(cols, wide_plans):
-    """The bf16 plan of the wide operator keeps the compact form with int32
-    offsets (the compact bf16 SpMM's form on the card); its plain blocked
-    product on `cols` columns, through wjd_spmm and rt.spmv, equals the
-    JAX product of the same columns."""
+    """The bf16 plan of the wide operator takes the packed24 form (offsets
+    past 16 bits, below 2**24); its plain blocked product on `cols`
+    columns, through wjd_spmm and rt.spmv, equals the JAX product of the
+    same columns, and so does the same plan's compact form with int32
+    offsets (`unpack_bf16_slices`: the compact bf16 SpMM's form)."""
     W, X, want = wide_plans
-    assert W.compact_form == "compact" and W.coff.dtype == torch.int32
-    assert W.cval.dtype == torch.bfloat16 and not W.window_relative
+    assert W.compact_form == "packed24" and not W.window_relative
     Xt = torch.from_numpy(np.ascontiguousarray(X[:, :cols]))
     Y = kernels.wjd_spmm(W, Xt)
     assert Y.dtype == torch.float32 and tuple(Y.shape) == (W.shape[0], cols)
     _close(Y.numpy(), want[:, :cols])
     assert torch.equal(rt.spmv(W, Xt), Y)
+    c = unpack_bf16_slices(*(getattr(W, k).numpy() for k in (
+        "cpack", "slice_ptr", "xbase", "chi")))
+    Wc = dataclasses.replace(
+        W, cpack=None, chi=None, slice_ptr=torch.from_numpy(c["slice_ptr"]),
+        cval=torch.from_numpy(c["cval"]).to(torch.bfloat16),
+        coff=torch.from_numpy(c["coff"]))
+    assert Wc.compact_form == "compact" and Wc.coff.dtype == torch.int32
+    Yc = kernels.wjd_spmm(Wc, Xt)
+    _close(Yc.numpy(), want[:, :cols])
+    assert torch.equal(Yc, Y)

@@ -788,24 +788,28 @@ BF16_GATHER = {
         {"split_dia": False, "max_slots": 4}, "packed"),
     "ragged_packed": (_ragged_rows, {"split_dia": False,
                                      "kernel_mode": "gather"}, "packed"),
-    "wide_compact_i32": (lambda: _wide_rows(np.float32),
-                         {"split_dia": False}, "compact"),
+    "wide_packed24": (lambda: _wide_rows(np.float32),
+                      {"split_dia": False}, "packed24"),
 }
+# the counter of the direct bf16 gather kernel that serves each form
+BF16_GATHER_KEY = {"packed": "gather_bf16",
+                   "packed24": "gather_bf16_packed24",
+                   "compact": "gather_bf16_compact"}
 
 
 @pytest.mark.parametrize("name", sorted(BF16_GATHER))
 def test_bf16_gather_kernels_on_each_form(cuda_device, name):
     """The direct bf16 gather kernels, single and blocked (KC 4, 8, 16),
     on the form the plan takes: packed (2-byte offsets; ragged widths,
-    empty slices, a ragged last tile, a spill) or compact (4-byte
-    offsets). Each against the plain version over its form and the padded
-    slot product, counted as its form's kernel; a column of a blocked
-    product is the single product bit for bit; rt.spmv on 20 columns
-    launches twice (16 + 4) and agrees."""
+    empty slices, a ragged last tile, a spill) or packed24 (offsets past
+    16 bits, a high byte a word). Each against the plain version over its
+    form and the padded slot product, counted as its form's kernel; a
+    column of a blocked product is the single product bit for bit; rt.spmv
+    on 20 columns launches twice (16 + 4) and agrees."""
     make, kw, form = BF16_GATHER[name]
     W = _on_card(from_csr(make(), values_dtype="bfloat16", **kw))
     assert W.compact_form == form and W.data is not None
-    key = "gather_bf16" if form == "packed" else "gather_bf16_compact"
+    key = BF16_GATHER_KEY[form]
     tol = TOL[torch.float32]
     x = _x(W.shape[1], torch.float32, cuda_device)
     xp = kernels.pad_x(W, x)
@@ -867,8 +871,8 @@ WIN_BF16_GATHER = {
                                  "packed"),
     "ragged_packed": (_ragged_rows, {"split_dia": False,
                                      "kernel_mode": "gather"}, 1, "packed"),
-    "wide_compact_i32": (lambda: _wide_rows(np.float32),
-                         {"split_dia": False}, 1, "compact"),
+    "wide_packed24": (lambda: _wide_rows(np.float32),
+                      {"split_dia": False}, 1, "packed24"),
 }
 
 
@@ -876,20 +880,22 @@ WIN_BF16_GATHER = {
 def test_windowed_bf16_gather_kernels_on_each_form(cuda_device, name,
                                                    monkeypatch):
     """A windowed bf16 gather plan takes the packed form where its
-    window-relative offsets fit 2 bytes, else the compact form (4-byte
-    offsets). Its windowed kernel launches its own counter
-    (win_gather_bf16 or win_gather_bf16_compact) and no other counter
+    window-relative offsets fit 2 bytes, else (a window of more than 512
+    rows) the packed24 form. Its windowed kernel launches its own counter
+    (win_gather_bf16 or win_gather_bf16_packed24) and no other counter
     moves; it agrees with the windowed plain version over its form and the
     padded slot product, and is bit for bit the direct kernel over the
     same form (xbase holds the step windows). Its blocked product goes
-    through the SpMM kernel of its form (the packed one counts
-    spmm_gather_bf16), and no other counter moves."""
+    through the SpMM kernel of its form (spmm_gather_bf16 or
+    spmm_gather_bf16_packed24), and no other counter moves."""
     make, kw, group, form = WIN_BF16_GATHER[name]
     _windowed_regime(monkeypatch, group)
     W = _on_card(from_csr(make(), values_dtype="bfloat16", **kw))
     assert W.window_relative and windowed(W, torch.float32)
     assert W.compact_form == form and W.group == group
-    tail = "" if form == "packed" else "_compact"
+    if form == "packed24":
+        assert W.win_rows > 512
+    tail = BF16_GATHER_KEY[form][len("gather_bf16"):]
     key, spmm_key = f"win_gather_bf16{tail}", f"spmm_gather_bf16{tail}"
     tol = TOL[torch.float32]
     x = _x(W.shape[1], torch.float32, cuda_device)
@@ -911,6 +917,109 @@ def test_windowed_bf16_gather_kernels_on_each_form(cuda_device, name,
     torch.cuda.synchronize()
     assert kernels.launches == {**before, spmm_key: before[spmm_key] + 1}
     assert _rel(Y, kernels.wjd_reference(W, X)) <= tol
+
+
+def _past_24_bits():
+    """64 rows, each coupled to a column 2**24 + 2**19 further on, on the
+    CPU: offsets past 24 bits, direct or window-relative."""
+    n, m = 64, (1 << 24) + (1 << 20)
+    rows = np.repeat(np.arange(n), 2)
+    cols = np.stack([np.arange(n), (1 << 24) + (1 << 19) + np.arange(n)],
+                    1).reshape(-1)
+    vals = np.random.default_rng(5).standard_normal(2 * n).astype(np.float32)
+    S = sp.csr_matrix((vals, (rows, cols)), shape=(n, m))
+    return rt.CSR.from_arrays(S.data, S.indices.astype(np.int32),
+                              S.indptr.astype(np.int32), S.shape,
+                              device="cpu")
+
+
+@pytest.mark.parametrize("regime", ["direct", "windowed"])
+def test_bf16_plan_past_24_bits_reaches_the_compact_kernels(cuda_device,
+                                                            regime,
+                                                            monkeypatch):
+    """A bf16 gather plan whose offsets pass 24 bits keeps the compact form
+    with int32 offsets, and its products go through the compact bf16
+    kernels (gather_bf16_compact, or win_gather_bf16_compact in the
+    windowed regime, and spmm_gather_bf16_compact), each against its plain
+    version; no packed kernel is launched. rt.spmv on 20 columns launches
+    the SpMM twice (16 + 4). The windowed compact kernel is the direct one
+    over the same form bit for bit (xbase holds the step windows). A
+    direct plan's x is at most X_VMEM_BUDGET bytes, so the direct case
+    raises the budget."""
+    if regime == "windowed":
+        _windowed_regime(monkeypatch)
+    else:
+        monkeypatch.setattr(wjd_mod, "X_VMEM_BUDGET", 1 << 30)
+    W = _on_card(from_csr(_past_24_bits(), values_dtype="bfloat16",
+                          split_dia=False, kernel_mode="gather"))
+    assert W.compact_form == "compact" and W.coff.dtype == torch.int32
+    assert int(W.coff.max()) >= 1 << 24
+    assert W.window_relative is (regime == "windowed")
+    key = ("win_" if regime == "windowed" else "") + "gather_bf16_compact"
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    before = dict(kernels.launches)
+    y = kernels.wjd_spmv(W, x)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**before, key: before[key] + 1}
+    assert _rel(y, kernels.wjd_reference(W, x)) <= tol
+    if regime == "windowed":
+        xp = kernels.pad_x(W, x)
+        assert torch.equal(kernels.slots_kernel_windowed(W, xp),
+                           kernels.slots_kernel(W, xp))
+    X = _x(W.shape[1] * 20, torch.float32, cuda_device).view(-1, 20)
+    before = dict(kernels.launches)
+    Y = rt.spmv(W, X)
+    torch.cuda.synchronize()
+    spmm_key = "spmm_gather_bf16_compact"
+    assert kernels.launches == {**before, spmm_key: before[spmm_key] + 2}
+    assert tuple(Y.shape) == (W.shape[0], 20)
+    assert _rel(Y, kernels.wjd_reference(W, X)) <= tol
+
+
+@pytest.mark.parametrize("regime", ["direct", "windowed"])
+def test_packed24_kernels_against_the_compact_kernels(cuda_device, regime,
+                                                      monkeypatch):
+    """On the wide plan (offsets past 16 bits), the packed24 SpMV and SpMM
+    against the compact bf16 kernels on the same plan unpacked to int32
+    offsets, the form they replace below 2**24 (1e-5), each counted as its
+    own kernel; high bytes off a 4-byte boundary are refused before a
+    launch."""
+    if regime == "windowed":
+        _windowed_regime(monkeypatch)
+    W = _on_card(from_csr(_wide_rows(np.float32), values_dtype="bfloat16",
+                          split_dia=False))
+    assert W.compact_form == "packed24"
+    assert W.window_relative is (regime == "windowed")
+    c = wjd_mod.unpack_bf16_slices(*(getattr(W, k).cpu().numpy() for k in (
+        "cpack", "slice_ptr", "xbase", "chi")))
+    Wc = _on_card(dataclasses.replace(
+        W, cpack=None, chi=None, slice_ptr=torch.from_numpy(c["slice_ptr"]),
+        cval=torch.from_numpy(c["cval"]).to(torch.bfloat16),
+        coff=torch.from_numpy(c["coff"])))
+    assert Wc.compact_form == "compact" and Wc.coff.dtype == torch.int32
+    win = "win_" if regime == "windowed" else ""
+    tol = TOL[torch.float32]
+    x = _x(W.shape[1], torch.float32, cuda_device)
+    X = _x(W.shape[1] * 16, torch.float32, cuda_device).view(-1, 16)
+    before = dict(kernels.launches)
+    y, yc = kernels.wjd_spmv(W, x), kernels.wjd_spmv(Wc, x)
+    Y, Yc = kernels.wjd_spmm(W, X), kernels.wjd_spmm(Wc, X)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in kernels.launches.items()
+             if n != before[k]}
+    assert moved == {f"{win}gather_bf16_packed24": 1,
+                     f"{win}gather_bf16_compact": 1,
+                     "spmm_gather_bf16_packed24": 1,
+                     "spmm_gather_bf16_compact": 1}
+    assert _rel(y, yc) <= tol and _rel(Y, Yc) <= tol
+    shifted = torch.empty(W.chi.numel() + 1, dtype=torch.uint8,
+                          device=cuda_device)[1:]
+    shifted.copy_(W.chi)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.wjd_spmv(dataclasses.replace(W, chi=shifted), x)
+    assert kernels.launches == before
 
 
 def _diagonals(offsets, n=3000):
